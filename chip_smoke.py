@@ -1,0 +1,401 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and hold every
+hand-written kernel against its plain PyTorch version.
+
+Run from the root of a checkout, on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero and prints no result):
+
+1. card: requires CUDA, prints ``nvidia-smi``'s name and power limit and
+   switches TF32 off for convolutions and matmuls;
+2. build: compiles ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a into
+   ``build/repro_torch/`` and prints the seconds and ptxas's register report;
+3. kernels: each kernel against its plain version on the card at the main
+   path's shapes, with its time, the plain version's time, the time of one
+   PyTorch call computing the same function where there is one, and the
+   least time the card could take (its bound);
+4. fleet: ``repro_torch.seeker_fleet_simulate`` at full HAR width, N=3000
+   nodes, S=8 slots, per-node streams, counting each kernel's launches; the
+   same run on the CPU through the plain versions, with the same noise,
+   must agree on at least 99% of the decisions;
+5. the kernel table as one JSON line, then the result line.
+"""
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+N_NODES, N_SLOTS = 3000, 8     # the top point and SLOTS of benchmarks/fleet_scale.py
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+REPO = Path(__file__).resolve().parent
+OUT = REPO / "chiprun_out"
+
+
+def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _time_ms(torch, fn, reps: int = 50, warmup: int = 5) -> float:
+    """Mean time of one call from CUDA events around ``reps`` back-to-back
+    calls: the device's time, or the host's where launching is slower."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _device_ms(torch, fn, match: str | None = None, reps: int = 20):
+    """Mean device time per call of the kernels ``fn`` launches (only those
+    whose name contains ``match``, if given), from ``torch.profiler``; None
+    if the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(_self_device_us(e) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and (match is None or match in e.key))
+    return total_us / reps / 1e3 if total_us > 0 else None
+
+
+def _self_device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if getattr(evt, name, None):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def _timings(torch, kernel_fn, kernel_name, plain_fn, library_fn=None):
+    """Device ms per call of the kernel alone, of the plain version and of
+    the library call (profiler, falling back to CUDA events where the
+    profiler sees nothing), plus each call's event-timed ms."""
+    call = {"kernel": _time_ms(torch, kernel_fn),
+            "plain": _time_ms(torch, plain_fn, reps=10)}
+    dev = {"kernel": _device_ms(torch, kernel_fn, kernel_name),
+           "plain": _device_ms(torch, plain_fn)}
+    if library_fn is not None:
+        call["library"] = _time_ms(torch, library_fn)
+        dev["library"] = _device_ms(torch, library_fn)
+    source = {k: "profiler" if v is not None else "events"
+              for k, v in dev.items()}
+    ms = {k: v if v is not None else call[k] for k, v in dev.items()}
+    return dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                library_ms=ms.get("library")), dict(call_ms=call,
+                                                    source=source)
+
+
+def phase_card(torch) -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    return smi
+
+
+def phase_build():
+    from repro_torch.kernels import build, ops
+    path, log, secs = build.build(ptxas_verbose=True)
+    ops.kernel_library()
+    print(f"build: {path.name} in {secs:.1f} s")
+    for line in log.splitlines():
+        if "Used" in line or "spill" in line or line.startswith("---"):
+            print("  " + line.strip())
+
+
+def phase_kernels(torch, dev) -> dict:
+    from repro_torch.core.coreset import points_from_window
+    from repro_torch.data.sensors import class_signatures, har_windows
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    labels = torch.randint(0, 12, (N_NODES,), generator=g, device=dev)
+    windows = har_windows(g, labels).contiguous()              # (3000, 60, 3)
+    sigs = class_signatures(device=dev).contiguous()           # (12, 60, 3)
+    table, extra = {}, {}
+
+    # --- signature_corr: (3000, 60, 3) x (12, 60, 3) -----------------------
+    b, t, c = windows.shape
+    l = sigs.shape[0]
+    got = ops.signature_corr_op(windows, sigs)
+    want = ref.signature_corr_ref(windows, sigs)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert bool((got.abs() <= 1 + 1e-4).all())
+    diag = torch.diag(ops.signature_corr_op(sigs, sigs))
+    torch.testing.assert_close(diag, torch.ones_like(diag), rtol=0, atol=1e-4)
+    # one einsum over operands centred and normalised beforehand computes
+    # the same (B, L) function: the library yardstick
+    wm = windows - windows.mean(1, keepdim=True)
+    sm = sigs - sigs.mean(1, keepdim=True)
+    a_op = wm / (wm.norm(dim=1, keepdim=True) * c)
+    b_op = sm / sm.norm(dim=1, keepdim=True)
+    lib = torch.einsum("btc,ltc->bl", a_op, b_op)
+    torch.testing.assert_close(lib, want, rtol=1e-4, atol=1e-5)
+    bound, by = _bound_ms(4 * (b * t * c + l * t * c + b * l),
+                          2 * b * l * t * c + 6 * b * t * c)
+    times, extra["signature_corr"] = _timings(
+        torch, lambda: ops.signature_corr_op(windows, sigs),
+        "signature_corr_kernel", lambda: ref.signature_corr_ref(windows, sigs),
+        lambda: torch.einsum("btc,ltc->bl", a_op, b_op))
+    table["signature_corr"] = dict(
+        max_abs_err=float((got - want).abs().max()), bound_ms=bound,
+        bound_by=by, **times)
+
+    # --- fake_quant: one slot's three per-node activations, and weights ----
+    acts = [torch.randn(shape, generator=g, device=dev) * 3.0
+            for shape in ((b, 60, 3), (b, 30, 32), (b, 15, 64))]
+    weight = torch.randn((960, 128), generator=g, device=dev) * 0.05
+    err = 0.0
+    for bits in (16, 12):
+        cases = [(x, True) for x in acts] + [(weight, False)]
+        for x, per_sample in cases:
+            got = ops.fake_quant_op(x, bits, per_sample=per_sample)
+            x2d = x.reshape(-1, x.shape[-1])
+            rows = x2d.shape[0] // x.shape[0] if per_sample else x2d.shape[0]
+            scale = ref.fake_quant_scale(x2d, bits, False, rows)
+            want = ref.fake_quant_ref(x2d, scale, bits, False, rows)
+            torch.testing.assert_close(got.reshape(x2d.shape), want,
+                                       rtol=1e-5, atol=1e-6)
+            half = scale.repeat_interleave(rows)[:, None] / 2
+            assert bool(((got.reshape(x2d.shape) - x2d).abs()
+                         <= half + 1e-6).all())
+            err = max(err, float((got.reshape(x2d.shape) - want).abs().max()))
+
+    # one slot's three launches; the kernel's device time leaves out the
+    # wrapper's amax reduction, and the plain version and the library call
+    # take the same precomputed per-node scales
+    slot = []
+    for x in acts:
+        x2d = x.reshape(-1, x.shape[-1])
+        rows = x2d.shape[0] // b
+        slot.append((x, x2d, rows, ref.fake_quant_scale(x2d, 16, False, rows)))
+    def quant_slot():
+        for x in acts:
+            ops.fake_quant_op(x, 16, per_sample=True)
+
+    def quant_slot_plain():
+        for _, x2d, rows, scale in slot:
+            ref.fake_quant_ref(x2d, scale, 16, False, rows)
+
+    zero_points = torch.zeros(b, dtype=torch.int32, device=dev)
+
+    def quant_slot_library():
+        for x, _, _, scale in slot:
+            torch.fake_quantize_per_channel_affine(
+                x.reshape(b, -1), scale, zero_points, 0, -32767, 32767)
+
+    n_act = sum(x.numel() for x in acts)
+    bound, by = _bound_ms(2 * 4 * n_act, 4 * n_act)
+    times, extra["fake_quant"] = _timings(
+        torch, quant_slot, "fake_quant_kernel", quant_slot_plain,
+        quant_slot_library)
+    table["fake_quant"] = dict(max_abs_err=err, bound_ms=bound, bound_by=by,
+                               **times)
+
+    # --- kmeans_coreset: the fleet's (3000 * 3, 60, 2) channel clouds -----
+    cols = windows.transpose(1, 2)[..., None]                   # (B, C, T, 1)
+    pts = points_from_window(cols).reshape(-1, t, 2).contiguous()
+    k, iters = 12, 4
+    kc, kr, kn = ops.kmeans_coreset_op(pts, k, iters)
+    pc, pr, pn = ref.kmeans_coreset_ref(pts, k, iters)
+    same = (kn == pn).all(dim=-1)
+    n_diff = int((~same).sum())
+    print(f"kmeans_coreset: counts differ on {n_diff} of {pts.shape[0]} "
+          f"clouds (a point within an ulp of equidistant may flip)")
+    assert float(same.float().mean()) >= 0.999
+    torch.testing.assert_close(kc[same], pc[same], rtol=0, atol=1e-4)
+    torch.testing.assert_close(kr[same], pr[same], rtol=0, atol=1e-4)
+    nb = pts.shape[0]
+    n, d = pts.shape[1:]
+    flops = ((iters + 1) * nb * n * k * 3 * d + iters * nb * n * d
+             + iters * nb * k * d + nb * n)
+    bound, by = _bound_ms(4 * (nb * n * d + nb * k * d + 2 * nb * k), flops)
+    times, extra["kmeans_coreset"] = _timings(
+        torch, lambda: ops.kmeans_coreset_op(pts, k, iters),
+        "kmeans_coreset_kernel", lambda: ref.kmeans_coreset_ref(pts, k, iters))
+    table["kmeans_coreset"] = dict(
+        max_abs_err=float((kc[same] - pc[same]).abs().max()), bound_ms=bound,
+        bound_by=by, **times)
+
+    for name, row in table.items():
+        print(f"{name}: device ms: kernel {row['ms']}, plain {row['plain_ms']}"
+              f", library {row['library_ms']}, bound {row['bound_ms']} "
+              f"({row['bound_by']}); per call with launch: "
+              f"{extra[name]['call_ms']}; timed by {extra[name]['source']}; "
+              f"max_abs_err {row['max_abs_err']:.3g}")
+    return table, extra
+
+
+def phase_fleet(torch, dev) -> tuple[dict, dict]:
+    import repro_torch
+    from repro_torch.configs.seeker_har import HAR
+    from repro_torch.core.energy import fleet_harvest_traces
+    from repro_torch.core.recovery import init_generator
+    from repro_torch.data.sensors import class_signatures, har_stream
+    from repro_torch.kernels import ops
+    from repro_torch.models.har import har_init
+    from repro_torch.serving.fleet import draw_fleet_noise, to_device
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = har_init(g, HAR)
+    inputs = dict(
+        signatures=class_signatures(device=dev), qdnn_params=params,
+        host_params=params,
+        gen_params=init_generator(g, HAR.window, HAR.channels), har_cfg=HAR)
+    windows, labels = har_stream(g, N_SLOTS, streams=N_NODES)  # (N, S, T, C)
+    harvest = fleet_harvest_traces(g, N_NODES, N_SLOTS)
+    labels = labels.T.contiguous()                             # (S, N)
+
+    ops.reset_launch_counts()
+    res = repro_torch.seeker_fleet_simulate(
+        windows, harvest, labels=labels, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0), **inputs)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = {"signature_corr": N_SLOTS, "kmeans_coreset": N_SLOTS,
+            "fake_quant": 3 * N_SLOTS + 4}
+    print(f"fleet launches {launches}, expected {want}")
+    assert launches == want, (launches, want)
+
+    hist = res["decision_histogram"]
+    assert int(hist.sum()) == N_NODES * N_SLOTS
+    assert res["logits"].shape == (N_SLOTS, N_NODES, HAR.n_classes)
+    assert bool(torch.isfinite(res["logits"]).all())
+    assert bool(torch.isfinite(res["stored_uj"]).all())
+
+    # steady-state timing: a second run, same inputs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    repro_torch.seeker_fleet_simulate(
+        windows, harvest, labels=labels, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0), **inputs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+
+    # where the slot's time goes: one more run under the profiler
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        repro_torch.seeker_fleet_simulate(
+            windows, harvest, labels=labels, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0), **inputs)
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    on_device = sorted((e for e in rows if e.device_type == DeviceType.CUDA),
+                       key=_self_device_us, reverse=True)
+    busy_ms = sum(_self_device_us(e) for e in on_device) / 1e3 / N_SLOTS
+    profile_summary = dict(
+        device_busy_ms_per_slot=busy_ms,
+        device_idle_share=1.0 - busy_ms / (secs / N_SLOTS * 1e3),
+        kernel_launches_per_slot=sum(e.count for e in on_device) / N_SLOTS,
+        top_kernels=[dict(name=e.key[:90], count_per_slot=e.count / N_SLOTS,
+                          ms_per_slot=_self_device_us(e) / 1e3 / N_SLOTS)
+                     for e in on_device[:15]])
+    OUT.mkdir(exist_ok=True)
+    (OUT / "fleet_profile.txt").write_text(
+        rows.table(sort_by="self_device_time_total", row_limit=60) + "\n"
+        + rows.table(sort_by="self_cpu_time_total", row_limit=40))
+    print(f"fleet profile: device busy {busy_ms:.3f} ms/slot, "
+          f"{profile_summary['kernel_launches_per_slot']:.0f} kernel launches"
+          f"/slot, idle share {profile_summary['device_idle_share']:.3f}")
+    for row in profile_summary["top_kernels"][:8]:
+        print(f"  {row['ms_per_slot']:.4f} ms/slot x{row['count_per_slot']:g} "
+              f"{row['name']}")
+
+    # the same noise, drawn again, replays the run exactly on the card ...
+    noise = draw_fleet_noise(torch.Generator(device=dev).manual_seed(0),
+                             N_SLOTS, N_NODES, HAR.window, HAR.channels)
+    again = repro_torch.seeker_fleet_simulate(
+        windows, harvest, labels=labels, noise=noise, device=dev, **inputs)
+    assert torch.equal(again["decisions"], res["decisions"])
+
+    # ... and on the CPU through the plain versions
+    torch.set_num_threads(8)
+    t1 = time.perf_counter()
+    cpu_inputs = {k: v if k == "har_cfg" else to_device(v, "cpu")
+                  for k, v in inputs.items()}
+    cpu = repro_torch.seeker_fleet_simulate(
+        windows.cpu(), harvest.cpu(), labels=labels.cpu(),
+        noise={k: v.cpu() for k, v in noise.items()}, device="cpu",
+        **cpu_inputs)
+    cpu_secs = time.perf_counter() - t1
+    agree = float((cpu["decisions"] == res["decisions"].cpu())
+                  .float().mean())
+    pred_agree = float((cpu["preds"] == res["preds"].cpu()).float().mean())
+    print(f"fleet N={N_NODES} S={N_SLOTS}: decisions agree with the CPU plain "
+          f"run on {agree:.6f} of slots, preds on {pred_agree:.6f}")
+    print(f"decision histogram (D0..D4, DEFER): card {hist.tolist()}, "
+          f"cpu {cpu['decision_histogram'].tolist()}")
+    assert agree >= 0.99
+    fleet = dict(
+        nodes=N_NODES, slots=N_SLOTS, ms_per_slot=secs / N_SLOTS * 1e3,
+        windows_per_s=N_NODES * N_SLOTS / secs, decision_agreement=agree,
+        pred_agreement=pred_agree, decision_histogram=hist.tolist(),
+        completed_frac=float(res["completed_frac"]),
+        fleet_accuracy=float(res["fleet_accuracy"]),
+        bytes_on_wire=int(res["bytes_on_wire_exact"]),
+        cpu_plain_seconds=cpu_secs, profile=profile_summary)
+    print(f"fleet: {fleet['ms_per_slot']:.3f} ms/slot, "
+          f"{fleet['windows_per_s']:.1f} windows/s on the card; "
+          f"cpu plain run {cpu_secs:.1f} s")
+    return fleet, launches
+
+
+_SOURCES = {
+    "signature_corr": ("src/repro_torch/kernels/csrc/signature_corr.cu",
+                       "src/repro/kernels/signature_corr.py:56"),
+    "fake_quant": ("src/repro_torch/kernels/csrc/fake_quant.cu",
+                   "src/repro/kernels/fake_quant.py:58"),
+    "kmeans_coreset": ("src/repro_torch/kernels/csrc/kmeans_coreset.cu",
+                       "src/repro/kernels/kmeans_coreset.py:84"),
+}
+
+
+def main() -> int:
+    import torch
+    smi = phase_card(torch)
+    sys.path.insert(0, str(REPO / "src"))
+    phase_build()
+    dev = torch.device("cuda")
+    table, extra = phase_kernels(torch, dev)
+    fleet, launches = phase_fleet(torch, dev)
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
+                    launches=launches[name], **table[name])
+               for name, (src, rep) in _SOURCES.items()]
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke.json").write_text(json.dumps(
+        dict(card=smi, kernels=kernels, timing=extra, fleet=fleet), indent=1))
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

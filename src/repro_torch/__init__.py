@@ -1,0 +1,9 @@
+"""repro_torch — the Seeker EH-WSN system in PyTorch, with hand-written CUDA
+kernels for Hopper.
+
+A second package beside the JAX reference ``repro``: the same modules, the
+same array layouts at every public function, and tests that hold each
+function against its JAX twin.  It imports neither JAX nor ``repro``.
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
+"""
+from .serving import seeker_fleet_simulate, seeker_simulate  # noqa: F401

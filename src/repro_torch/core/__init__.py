@@ -1,0 +1,23 @@
+"""Seeker's core: coresets, recovery, memoization, energy model and the
+decision flow."""
+from .coreset import (  # noqa: F401
+    ClusterCoreset, SamplingCoreset, points_from_window, window_from_points,
+    channel_cluster_coresets, importance_weights, importance_coreset,
+    raw_payload_bytes, cluster_payload_bytes, sampling_payload_bytes,
+)
+from .recovery import (  # noqa: F401
+    recover_cluster_points, recover_cluster_window, GeneratorParams,
+    init_generator, generator_apply, recover_sampling_window,
+)
+from .memo import pearson, signature_correlations  # noqa: F401
+from .energy import (  # noqa: F401
+    EnergyCosts, TABLE2_COSTS, D5_RAW, harvest_trace, EH_SOURCES,
+    fleet_source_assignment, fleet_harvest_traces, supercap_step,
+    supercap_step_direct, SUPERCAP_CAP_UJ, SUPERCAP_CHARGE_EFF,
+    PredictorState, predictor_init, predictor_update, predictor_forecast,
+)
+from .aac import AACTable, make_aac_table, select_k  # noqa: F401
+from .decision import (  # noqa: F401
+    D0_MEMO, D1_DNN_FULL, D2_DNN_QUANT, D3_CLUSTER, D4_SAMPLING, DEFER,
+    D6_PARTIAL, D7_EARLY_EXIT, D8_STAGED_FULL, DecisionOutcome, choose_decision, decision_energy,
+)

@@ -1,0 +1,91 @@
+"""Seeker's energy-aware decision flow (paper §4.1, Fig. 8).
+
+PyTorch counterpart of :mod:`repro.core.decision`.  The selector works
+elementwise, so the same call serves one node (0-d tensors) or a whole
+fleet (``(N,)`` tensors) — JAX's ``vmap`` over nodes written out.
+
+Codes: D0 memoization hit, D1 full DNN, D2 quantized DNN, D3 cluster
+coreset, D4 sampling coreset, DEFER, and the intermittent lane's D6/D7/D8
+(emitted by that lane, never by :func:`choose_decision`).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .energy import EnergyCosts
+
+__all__ = ["D0_MEMO", "D1_DNN_FULL", "D2_DNN_QUANT", "D3_CLUSTER",
+           "D4_SAMPLING", "DEFER", "D6_PARTIAL", "D7_EARLY_EXIT",
+           "D8_STAGED_FULL", "DecisionOutcome",
+           "choose_decision", "decision_energy"]
+
+D0_MEMO = 0
+D1_DNN_FULL = 1
+D2_DNN_QUANT = 2
+D3_CLUSTER = 3
+D4_SAMPLING = 4
+DEFER = 5
+D6_PARTIAL = 6
+D7_EARLY_EXIT = 7
+D8_STAGED_FULL = 8
+
+
+class DecisionOutcome(NamedTuple):
+    decision: torch.Tensor   # int32 in [0, 5]
+    spend: torch.Tensor      # float32 µJ this slot will consume
+
+
+def decision_energy(costs: EnergyCosts, device=None) -> torch.Tensor:
+    """(9,) float32 µJ cost vector indexed by decision code."""
+    return torch.tensor(costs.decision_costs(), dtype=torch.float32,
+                        device=device)
+
+
+def choose_decision(max_corr: torch.Tensor, stored_uj: torch.Tensor,
+                    forecast_uj: torch.Tensor, costs: EnergyCosts,
+                    corr_threshold: float = 0.95,
+                    allow_full_dnn: bool = False,
+                    harvested_uj: torch.Tensor | None = None
+                    ) -> DecisionOutcome:
+    """Fig. 8 walk: memo gate -> local DNN if affordable -> cluster coreset
+    -> sampling coreset -> defer.
+
+    ``harvested_uj`` switches on strict store-and-execute accounting: a
+    decision must be payable from ``stored + harvested`` alone, the memo
+    gate is energy-gated, and DEFER's spend clamps to zero when not even
+    sensing is payable.  Without it the legacy forecast-budget walk runs.
+    """
+    strict = harvested_uj is not None
+    budget = stored_uj + (harvested_uj if strict else forecast_uj)
+    cost = decision_energy(costs, device=budget.device)
+
+    memo_hit = max_corr >= corr_threshold
+    if strict:
+        memo_hit = memo_hit & (budget >= cost[D0_MEMO])
+    can_full = budget >= cost[D1_DNN_FULL]
+    can_quant = budget >= cost[D2_DNN_QUANT]
+    can_cluster = budget >= cost[D3_CLUSTER]
+    can_sample = budget >= cost[D4_SAMPLING]
+
+    def code(c):
+        return torch.full_like(budget, c, dtype=torch.int32)
+
+    if allow_full_dnn:
+        dnn_choice = torch.where(can_full, code(D1_DNN_FULL),
+                                 code(D2_DNN_QUANT))
+        can_dnn = can_full | can_quant
+    else:
+        dnn_choice = code(D2_DNN_QUANT)
+        can_dnn = can_quant
+    # prefer clustering over sampling when affordable
+    offload = torch.where(can_cluster, code(D3_CLUSTER),
+                          torch.where(can_sample, code(D4_SAMPLING),
+                                      code(DEFER)))
+    local = torch.where(can_dnn, dnn_choice, offload)
+    decision = torch.where(memo_hit, code(D0_MEMO), local)
+    spend = cost[decision.long()]
+    if strict:
+        spend = torch.where(budget >= spend, spend, torch.zeros_like(spend))
+    return DecisionOutcome(decision=decision, spend=spend)

@@ -1,0 +1,117 @@
+"""Build the port's CUDA kernels into one shared library, at first use.
+
+Every ``*.cu`` file in ``csrc/`` is compiled by its own ``nvcc`` process,
+all started together, for ``sm_90a`` (Hopper), and the objects are linked
+into one ``.so`` with a plain C interface that :mod:`repro_torch.kernels.ops`
+loads with ``ctypes``.  The library lands in ``build/repro_torch/`` at the
+root of the checkout, named by a hash of the sources and flags, so an edited
+source is never served by a stale build.  Nothing here runs when the module
+is imported.
+
+No ``--use_fast_math``: the quantizer needs IEEE division and ``rintf``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "library_path",
+           "build", "load"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+# (name, argtypes) of every C entry point; ctypes would otherwise pass each
+# pointer as a 32-bit int
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_ENTRY_POINTS = {
+    "signature_corr_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "fake_quant_launch": (_P, _P, _P, _LL, _I, _LL, _I, _F, _P),
+    "kmeans_coreset_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+}
+
+
+def find_nvcc() -> str:
+    """``$NVCC``, then ``$CUDA_HOME/bin/nvcc``, ``/usr/local/cuda/bin/nvcc``
+    and ``nvcc`` on ``PATH``."""
+    cands = [os.environ.get("NVCC")]
+    if os.environ.get("CUDA_HOME"):
+        cands.append(str(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc"))
+    cands += ["/usr/local/cuda/bin/nvcc", shutil.which("nvcc")]
+    for c in cands:
+        if c and Path(c).is_file():
+            return c
+    raise RuntimeError("nvcc not found: set NVCC or CUDA_HOME; the CUDA "
+                       "kernels are built on the machine with the card")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build(ptxas_verbose: bool = False) -> tuple[Path, str, float]:
+    """Compile and link the kernels unless this exact build exists.
+
+    Returns ``(library path, compiler log, seconds spent)``; the log holds
+    ``-Xptxas -v``'s register and spill report when ``ptxas_verbose``."""
+    out = library_path()
+    if out.exists():
+        return out, "", 0.0
+    nvcc = find_nvcc()
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    extra = ("-Xptxas", "-v") if ptxas_verbose else ()
+    logs = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
+            jobs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for src, _, proc in jobs:
+            text, _ = proc.communicate()
+            logs.append(f"--- {src.name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        so_tmp = Path(tmp) / out.name
+        link = [nvcc, "-shared", *NVCC_FLAGS, "-o", str(so_tmp),
+                *[str(obj) for _, obj, _ in jobs]]
+        res = subprocess.run(link, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{res.stdout}")
+        os.replace(so_tmp, out)
+    return out, "\n".join(logs), time.perf_counter() - t0
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, load the library and declare every entry point."""
+    path, _, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib

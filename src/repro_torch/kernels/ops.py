@@ -1,0 +1,154 @@
+"""Dispatch for the hand-written CUDA kernels.
+
+Counterpart of :mod:`repro.kernels.ops`, with the same op names.  Each op
+looks at where its tensors lie:
+
+* on the CPU it runs the plain PyTorch version from
+  :mod:`repro_torch.kernels.ref` — the CPU tests' path;
+* on a CUDA device it launches its kernel (built at first use by
+  :mod:`repro_torch.kernels.build`) or raises; it never falls back.
+
+Each op counts its kernel launches (:func:`launch_counts`), so a run can
+show that its main path went through the kernels.  The wrappers check
+dtype, device, shape and contiguity, allocate the outputs, and launch on
+PyTorch's current stream; a refused launch raises at once.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import ref
+
+__all__ = ["signature_corr_op", "fake_quant_op", "kmeans_coreset_op",
+           "launch_counts", "reset_launch_counts", "kernel_library"]
+
+_LAUNCHES = {"signature_corr": 0, "fake_quant": 0, "kmeans_coreset": 0}
+_LIB: ctypes.CDLL | None = None
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per op since the last :func:`reset_launch_counts`."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def kernel_library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _LIB
+    if _LIB is None:
+        from .build import load
+        _LIB = load()
+    return _LIB
+
+
+def _on_cuda(op: str, *tensors: torch.Tensor) -> bool:
+    """True for all-CUDA operands, False for all-CPU; anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(f"{op}: operands on {sorted(str(t.device) for t in tensors)}"
+                     f"; the op runs on the CPU or on one CUDA device")
+
+
+def _check(op: str, name: str, t: torch.Tensor, ndim: int | None) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"{op}: {name} must be float32, got {t.dtype}")
+    if ndim is not None and t.ndim != ndim:
+        raise ValueError(f"{op}: {name} must be {ndim}-D, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{op}: {name} must be contiguous")
+
+
+def _launch(op: str, entry: str, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        err = getattr(kernel_library(), entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{op}: kernel launch failed with CUDA error {err}")
+    _LAUNCHES[op] += 1
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def signature_corr_op(windows: torch.Tensor,
+                      signatures: torch.Tensor) -> torch.Tensor:
+    """(B, T, C) vs (L, T, C) -> (B, L) mean per-channel Pearson
+    correlations: the fleet's memoization hot path, one call per slot."""
+    op = "signature_corr"
+    _check(op, "windows", windows, 3)
+    _check(op, "signatures", signatures, 3)
+    b, t, c = windows.shape
+    l = signatures.shape[0]
+    if signatures.shape[1:] != (t, c):
+        raise ValueError(f"{op}: windows {tuple(windows.shape)} and "
+                         f"signatures {tuple(signatures.shape)} disagree")
+    if not _on_cuda(op, windows, signatures):
+        return ref.signature_corr_ref(windows, signatures)
+    if t > 64 or c > 4 or (l * t * c + l * c) * 4 > 48 * 1024:
+        raise ValueError(f"{op}: kernel takes T <= 64, C <= 4 and a bank of "
+                         f"at most 48 KB, got T={t}, C={c}, L={l}")
+    out = torch.empty((b, l), dtype=torch.float32, device=windows.device)
+    _launch(op, "signature_corr_launch", windows.device, _ptr(windows),
+            _ptr(signatures), _ptr(out), b, l, t, c)
+    return out
+
+
+def fake_quant_op(x: torch.Tensor, bits: int, per_channel: bool = False,
+                  per_sample: bool = False) -> torch.Tensor:
+    """Fake-quantize ``x`` at ``bits`` precision.
+
+    The scale is one per tensor (default), one per last-dim channel
+    (``per_channel``), or one per leading index (``per_sample``: each node
+    of a batched activation gets its own amax, as each node does under the
+    JAX fleet's vmap).  The amax reduction runs outside the kernel, as in
+    the JAX package."""
+    op = "fake_quant"
+    _check(op, "x", x, None)
+    if per_channel and per_sample:
+        raise ValueError(f"{op}: per_channel and per_sample exclude each other")
+    if per_sample and x.ndim < 2:
+        raise ValueError(f"{op}: per_sample needs a leading sample axis")
+    x2d = x.reshape(-1, x.shape[-1]) if x.ndim > 1 else x.reshape(1, -1)
+    r, c = x2d.shape
+    rows_per_group = r // x.shape[0] if per_sample else r
+    scale = ref.fake_quant_scale(x2d, bits, per_channel, rows_per_group)
+    if not _on_cuda(op, x):
+        out = ref.fake_quant_ref(x2d, scale, bits, per_channel,
+                                 rows_per_group)
+        return out.reshape(x.shape)
+    out = torch.empty_like(x)
+    qmax = 2.0 ** (bits - 1) - 1.0
+    _launch(op, "fake_quant_launch", x.device, _ptr(x), _ptr(scale),
+            _ptr(out), x.numel(), c, rows_per_group * c, int(per_channel),
+            qmax)
+    return out
+
+
+def kmeans_coreset_op(points: torch.Tensor, k: int, iters: int = 4):
+    """Batched clustering coresets: (B, N, D) -> (centers (B,k,D),
+    radii (B,k), counts (B,k) int32)."""
+    op = "kmeans_coreset"
+    _check(op, "points", points, 3)
+    b, n, d = points.shape
+    if not _on_cuda(op, points):
+        return ref.kmeans_coreset_ref(points, k, iters)
+    if n > 64 or d > 4 or k > 32:
+        raise ValueError(f"{op}: kernel takes N <= 64, D <= 4, k <= 32, "
+                         f"got N={n}, D={d}, k={k}")
+    dev = points.device
+    centers = torch.empty((b, k, d), dtype=torch.float32, device=dev)
+    radii = torch.empty((b, k), dtype=torch.float32, device=dev)
+    counts = torch.empty((b, k), dtype=torch.int32, device=dev)
+    _launch(op, "kmeans_coreset_launch", dev, _ptr(points), _ptr(centers),
+            _ptr(radii), _ptr(counts), b, n, d, k, iters)
+    return centers, radii, counts

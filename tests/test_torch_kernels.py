@@ -1,0 +1,192 @@
+"""The port's kernel ops on the CPU, where each runs its plain PyTorch
+version, against ``repro.kernels.ref`` and against the JAX ops with
+``impl="pallas"`` (interpret mode, as tests/test_kernels.py runs them), at
+that file's shapes and tolerances.  The CUDA kernels themselves are held
+against these plain versions on the card by ``chip_smoke.py``.
+
+The quantizer is compared with the JAX functions as they run compiled (under
+``jax.jit``, as the fleet engine and the Pallas wrapper run them): XLA
+compiles the scale's division by the constant qmax to a multiply by its
+reciprocal, and the port follows the compiled arithmetic.  Op-by-op JAX
+divides instead, which for some amax moves a boundary element by a level.
+"""
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)   # the suite runs several test workers at once
+
+from repro.kernels import (fake_quant_op, kmeans_coreset_op,  # noqa: E402
+                           signature_corr_op)
+from repro.kernels import ref  # noqa: E402
+
+from repro_torch.kernels import build, ops  # noqa: E402
+
+REPO = Path(__file__).resolve().parent.parent
+CORR_TOL = dict(rtol=1e-4, atol=1e-5)
+QUANT_TOL = dict(rtol=1e-5, atol=1e-6)
+KMEANS_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _normal(seed, shape, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape)
+            * scale).astype(np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+# ---------------------------------------------------------------------------
+# signature_corr
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,l", [(4, 5), (16, 12), (9, 3)])
+def test_corr_plain_matches_jax(b, l):
+    w, s = _normal(1, (b, 60, 3)), _normal(2, (l, 60, 3))
+    got = ops.signature_corr_op(_t(w), _t(s)).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref.signature_corr_ref(w, s)),
+                               **CORR_TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(signature_corr_op(w, s, impl="pallas")), **CORR_TOL)
+    assert np.all(np.abs(got) <= 1.0 + 1e-4)
+
+
+def test_corr_self_correlation_is_one():
+    w = _t(_normal(3, (5, 60, 3)))
+    c = ops.signature_corr_op(w, w)
+    np.testing.assert_allclose(torch.diag(c).numpy(), 1.0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# fake_quant
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bits", [8, 12, 16])
+@pytest.mark.parametrize("shape,per_channel", [
+    ((33, 70), False), ((33, 70), True), ((4, 60, 3), False),
+    ((4, 60, 3), True), ((256,), False)])
+def test_quant_plain_matches_jax(bits, shape, per_channel):
+    x = _normal(4, shape, 3.0)
+    got = ops.fake_quant_op(_t(x), bits, per_channel=per_channel).numpy()
+    x2d = x.reshape(-1, shape[-1]) if x.ndim > 1 else x.reshape(1, -1)
+    want = np.asarray(jax.jit(ref.fake_quant_ref, static_argnums=(1, 2))(
+        x2d, bits, per_channel))
+    np.testing.assert_allclose(got, want.reshape(shape), **QUANT_TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(fake_quant_op(x, bits, per_channel=per_channel,
+                                      impl="pallas")), **QUANT_TOL)
+
+
+def test_quant_error_bound():
+    x = _normal(5, (64, 64))
+    for bits in (8, 12, 16):
+        q = ops.fake_quant_op(_t(x), bits).numpy()
+        scale = float(np.abs(x).max()) / (2 ** (bits - 1) - 1)
+        assert float(np.abs(q - x).max()) <= scale / 2 + 1e-6
+
+
+@pytest.mark.parametrize("bits", [12, 16])
+@pytest.mark.parametrize("shape", [(6, 60, 3), (6, 30, 32), (6, 15, 64)])
+def test_quant_per_sample_is_the_jax_fleet_vmap(bits, shape):
+    """Under the JAX fleet's vmap each node's activation has its own amax:
+    per_sample on (N, ...) equals JAX's op on x[i][None], vmapped over i."""
+    x = _normal(6, shape) * np.linspace(0.1, 5.0, shape[0])[:, None, None]
+    x = x.astype(np.float32)
+    got = ops.fake_quant_op(_t(x), bits, per_sample=True).numpy()
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda v: fake_quant_op(v[None], bits)[0]))(x))
+    np.testing.assert_allclose(got, want, **QUANT_TOL)
+
+
+def test_quant_rounds_half_to_even():
+    # x / s lands exactly on .5: 127 levels at 8 bits, s = 1
+    x = torch.tensor([[127.0, 0.5, 1.5, 2.5, -2.5]])
+    np.testing.assert_array_equal(ops.fake_quant_op(x, 8).numpy(),
+                                  [[127.0, 0.0, 2.0, 2.0, -2.0]])
+
+
+# ---------------------------------------------------------------------------
+# kmeans_coreset
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,d", [(60, 4), (32, 2), (64, 8)])
+@pytest.mark.parametrize("k", [4, 12, 16])
+def test_kmeans_plain_matches_ref(n, d, k, b=24):
+    pts = _normal(7, (b, n, d))
+    c1, r1, n1 = ops.kmeans_coreset_op(_t(pts), k)
+    c2, r2, n2 = ref.kmeans_coreset_ref(pts, k=k)
+    np.testing.assert_allclose(c1.numpy(), np.asarray(c2), **KMEANS_TOL)
+    np.testing.assert_allclose(r1.numpy(), np.asarray(r2), **KMEANS_TOL)
+    np.testing.assert_array_equal(n1.numpy(), np.asarray(n2))
+    assert n1.dtype == torch.int32
+
+
+@pytest.mark.parametrize("b,n,d,k", [(8, 60, 2, 12), (9, 60, 4, 12)])
+def test_kmeans_plain_matches_pallas(b, n, d, k):
+    pts = _normal(8, (b, n, d))
+    c1, r1, n1 = ops.kmeans_coreset_op(_t(pts), k)
+    c2, r2, n2 = kmeans_coreset_op(pts, k=k, impl="pallas")
+    np.testing.assert_allclose(c1.numpy(), np.asarray(c2), **KMEANS_TOL)
+    np.testing.assert_allclose(r1.numpy(), np.asarray(r2), **KMEANS_TOL)
+    np.testing.assert_array_equal(n1.numpy(), np.asarray(n2))
+
+
+def test_kmeans_argmin_ties_go_to_lowest_index():
+    # every point equidistant from centres 0 and 1 would flip an
+    # index-unstable argmin; the first centre must take them all
+    pts = torch.zeros((1, 4, 2))
+    pts[0, :, 1] = torch.tensor([-1.0, 1.0, -1.0, 1.0])
+    _, _, counts = ops.kmeans_coreset_op(pts, 2, iters=0)
+    np.testing.assert_array_equal(counts.numpy(), [[4, 0]])
+
+
+# ---------------------------------------------------------------------------
+# Wrapper contract
+# ---------------------------------------------------------------------------
+
+def test_wrappers_reject_bad_operands():
+    x = torch.zeros((4, 60, 3), dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        ops.signature_corr_op(x, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.kmeans_coreset_op(torch.zeros((4, 2, 60)).transpose(1, 2), 3)
+    with pytest.raises(ValueError, match="disagree"):
+        ops.signature_corr_op(torch.zeros((4, 60, 3)), torch.zeros((2, 50, 3)))
+    with pytest.raises(ValueError, match="exclude"):
+        ops.fake_quant_op(torch.zeros((4, 3)), 8, per_channel=True,
+                          per_sample=True)
+
+
+def test_cpu_ops_count_no_launches():
+    ops.reset_launch_counts()
+    ops.signature_corr_op(torch.zeros((2, 60, 3)), torch.ones((3, 60, 3)))
+    ops.fake_quant_op(torch.ones((2, 3)), 8)
+    ops.kmeans_coreset_op(torch.zeros((2, 60, 2)), 4)
+    assert ops.launch_counts() == {"signature_corr": 0, "fake_quant": 0,
+                                   "kmeans_coreset": 0}
+
+
+def test_ops_import_and_cpu_path_need_no_nvcc():
+    code = ("import torch; from repro_torch.kernels import ops; "
+            "print(ops.fake_quant_op(torch.ones(2, 3), 8).sum().item())")
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+           "CUDA_HOME": "/nonexistent"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, env=env)
+    assert out.stdout.strip() == "6.0"
+
+
+def test_build_names_library_by_source_hash():
+    path = build.library_path()
+    assert path.parent == REPO / "build" / "repro_torch"
+    assert path.name.startswith("librepro_torch_kernels-")
+    assert {p.name for p in build.CSRC.glob("*.cu")} == {
+        "signature_corr.cu", "fake_quant.cu", "kmeans_coreset.cu"}
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert "--use_fast_math" not in build.NVCC_FLAGS
