@@ -20,7 +20,15 @@ Phases (any failure exits non-zero and prints no result):
    nodes, S=8 slots, per-node streams, counting each kernel's launches; the
    same run on the CPU through the plain versions, with the same noise,
    must agree on at least 99% of the decisions;
-5. the kernel table as one JSON line, then the result line.
+5. this slice's paths, each with its launches counted: the importance
+   sampler's entry point ``importance_select_op`` on the N=3000 HAR
+   windows, checked against its plain version on the CPU; and the
+   scarce-harvest fleet of ``benchmarks/fleet_scale.py``'s intermittent
+   rows (N=3000, S=32, harvest scaled by 0.04, brown-out at 6/30 µJ from
+   12 µJ, the intermittent lane) with churn, whose first 8 slots must agree
+   with a CPU run of the plain versions on at least 99% of the decisions
+   and within 1% on brown-out events and lane emissions;
+6. the kernel table as one JSON line, then the result line.
 """
 import json
 import subprocess
@@ -29,6 +37,12 @@ import time
 from pathlib import Path
 
 N_NODES, N_SLOTS = 3000, 8     # the top point and SLOTS of benchmarks/fleet_scale.py
+# the intermittent rows of benchmarks/fleet_scale.py: INTERMITTENT_SLOTS,
+# INTERMITTENT_SCARCITY, BROWNOUT_CFG, BROWNOUT_INITIAL_UJ, INTERMITTENT_CFG
+SCARCE_SLOTS, SCARCITY = 32, 0.04
+BROWNOUT_UJ, INITIAL_UJ = (6.0, 30.0), 12.0
+COMPARE_SLOTS = 8              # slots of the scarce run replayed on the CPU
+IMPORTANCE_M = 20              # the HAR sampling points
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 REPO = Path(__file__).resolve().parent
@@ -99,6 +113,40 @@ def _timings(torch, kernel_fn, kernel_name, plain_fn, library_fn=None):
     return dict(ms=ms["kernel"], plain_ms=ms["plain"],
                 library_ms=ms.get("library")), dict(call_ms=call,
                                                     source=source)
+
+
+def _profile(torch, run, slots: int, secs: float, name: str) -> dict:
+    """One more run under the profiler: device busy time and kernel
+    launches per slot, the idle share against the host-clock run of
+    ``secs``, the top kernels; the tables are written under ``OUT``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    on_device = sorted((e for e in rows if e.device_type == DeviceType.CUDA),
+                       key=_self_device_us, reverse=True)
+    busy_ms = sum(_self_device_us(e) for e in on_device) / 1e3 / slots
+    summary = dict(
+        device_busy_ms_per_slot=busy_ms,
+        device_idle_share=1.0 - busy_ms / (secs / slots * 1e3),
+        kernel_launches_per_slot=sum(e.count for e in on_device) / slots,
+        top_kernels=[dict(name=e.key[:90], count_per_slot=e.count / slots,
+                          ms_per_slot=_self_device_us(e) / 1e3 / slots)
+                     for e in on_device[:15]])
+    OUT.mkdir(exist_ok=True)
+    (OUT / f"{name}_profile.txt").write_text(
+        rows.table(sort_by="self_device_time_total", row_limit=60) + "\n"
+        + rows.table(sort_by="self_cpu_time_total", row_limit=40))
+    print(f"{name} profile: device busy {busy_ms:.3f} ms/slot, "
+          f"{summary['kernel_launches_per_slot']:.0f} kernel launches"
+          f"/slot, idle share {summary['device_idle_share']:.3f}")
+    for row in summary["top_kernels"][:8]:
+        print(f"  {row['ms_per_slot']:.4f} ms/slot x{row['count_per_slot']:g} "
+              f"{row['name']}")
+    return summary
 
 
 def phase_card(torch) -> str:
@@ -240,6 +288,40 @@ def phase_kernels(torch, dev) -> dict:
         max_abs_err=float((kc[same] - pc[same]).abs().max()), bound_ms=bound,
         bound_by=by, **times)
 
+    # --- importance_select: the HAR windows, m=20, and one batch at the
+    # JAX tests' (13, 64, 5) with m=8 ----------------------------------
+    m = IMPORTANCE_M
+    small = torch.randn((13, 64, 5), generator=g, device=dev)
+    err = 0.0
+    for x, mm in ((windows, m), (small, 8)):
+        ki, kv, kw = ops.importance_select_op(x, mm)
+        pi, pv, pw = ref.importance_select_ref(x, mm)
+        n_diff = int((ki != pi).any(dim=-1).sum())
+        print(f"importance_select {tuple(x.shape)} m={mm}: indices differ on "
+              f"{n_diff} of {x.shape[0]} windows")
+        assert n_diff == 0
+        torch.testing.assert_close(kv, pv, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(kw, pw, rtol=1e-4, atol=1e-5)
+        err = max(err, float((kv - pv).abs().max()),
+                  float((kw - pw).abs().max()))
+    # bytes: windows in, indices, values and weights out; operations per
+    # sample: the box sum, divide, subtract and abs per channel, the channel
+    # and time sums, the blend, m argmax comparisons; 3 per output weight
+    nbytes = 4 * (b * t * c + b * m * (2 + c))
+    flops = b * (t * c * (8 + 3) + t * (c - 1) + t + 3 * t + m * t + 3 * m)
+    bound, by = _bound_ms(nbytes, flops)
+    times, extra["importance_select"] = _timings(
+        torch, lambda: ops.importance_select_op(windows, m),
+        "importance_select_kernel",
+        lambda: ref.importance_select_ref(windows, m))
+    # not the same function (no scores, no sort, no gathers): a yardstick
+    # for the selection alone
+    scores = torch.rand((b, t), generator=g, device=dev)
+    extra["importance_select"]["topk_of_scores_ms"] = _time_ms(
+        torch, lambda: torch.topk(scores, m, dim=-1))
+    table["importance_select"] = dict(max_abs_err=err, bound_ms=bound,
+                                      bound_by=by, **times)
+
     for name, row in table.items():
         print(f"{name}: device ms: kernel {row['ms']}, plain {row['plain_ms']}"
               f", library {row['library_ms']}, bound {row['bound_ms']} "
@@ -276,7 +358,7 @@ def phase_fleet(torch, dev) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     want = {"signature_corr": N_SLOTS, "kmeans_coreset": N_SLOTS,
-            "fake_quant": 3 * N_SLOTS + 4}
+            "fake_quant": 3 * N_SLOTS + 4, "importance_select": 0}
     print(f"fleet launches {launches}, expected {want}")
     assert launches == want, (launches, want)
 
@@ -295,36 +377,10 @@ def phase_fleet(torch, dev) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
 
-    # where the slot's time goes: one more run under the profiler
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        repro_torch.seeker_fleet_simulate(
-            windows, harvest, labels=labels, device=dev,
-            generator=torch.Generator(device=dev).manual_seed(0), **inputs)
-        torch.cuda.synchronize()
-    rows = prof.key_averages()
-    on_device = sorted((e for e in rows if e.device_type == DeviceType.CUDA),
-                       key=_self_device_us, reverse=True)
-    busy_ms = sum(_self_device_us(e) for e in on_device) / 1e3 / N_SLOTS
-    profile_summary = dict(
-        device_busy_ms_per_slot=busy_ms,
-        device_idle_share=1.0 - busy_ms / (secs / N_SLOTS * 1e3),
-        kernel_launches_per_slot=sum(e.count for e in on_device) / N_SLOTS,
-        top_kernels=[dict(name=e.key[:90], count_per_slot=e.count / N_SLOTS,
-                          ms_per_slot=_self_device_us(e) / 1e3 / N_SLOTS)
-                     for e in on_device[:15]])
-    OUT.mkdir(exist_ok=True)
-    (OUT / "fleet_profile.txt").write_text(
-        rows.table(sort_by="self_device_time_total", row_limit=60) + "\n"
-        + rows.table(sort_by="self_cpu_time_total", row_limit=40))
-    print(f"fleet profile: device busy {busy_ms:.3f} ms/slot, "
-          f"{profile_summary['kernel_launches_per_slot']:.0f} kernel launches"
-          f"/slot, idle share {profile_summary['device_idle_share']:.3f}")
-    for row in profile_summary["top_kernels"][:8]:
-        print(f"  {row['ms_per_slot']:.4f} ms/slot x{row['count_per_slot']:g} "
-              f"{row['name']}")
+    profile_summary = _profile(torch, lambda: repro_torch.seeker_fleet_simulate(
+        windows, harvest, labels=labels, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0), **inputs),
+        N_SLOTS, secs, "fleet")
 
     # the same noise, drawn again, replays the run exactly on the card ...
     noise = draw_fleet_noise(torch.Generator(device=dev).manual_seed(0),
@@ -365,6 +421,144 @@ def phase_fleet(torch, dev) -> tuple[dict, dict]:
     return fleet, launches
 
 
+def phase_importance(torch, dev) -> dict:
+    """The importance sampler's path: its entry point on the N=3000 HAR
+    windows, with its launches counted, checked against the plain version
+    on the CPU."""
+    from repro_torch.data.sensors import har_windows
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    labels = torch.randint(0, 12, (N_NODES,), generator=g, device=dev)
+    windows = har_windows(g, labels).contiguous()              # (3000, 60, 3)
+    ops.reset_launch_counts()
+    idx, vals, weights = ops.importance_select_op(windows, IMPORTANCE_M)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = {"signature_corr": 0, "fake_quant": 0, "kmeans_coreset": 0,
+            "importance_select": 1}
+    print(f"importance launches {launches}, expected {want}")
+    assert launches == want, (launches, want)
+    assert bool((idx[:, 1:] > idx[:, :-1]).all())          # distinct, ascending
+    assert bool(torch.isfinite(weights).all() & (weights > 0).all())
+    cpu = ref.importance_select_ref(windows.cpu(), IMPORTANCE_M)
+    assert torch.equal(idx.cpu(), cpu[0])
+    torch.testing.assert_close(vals.cpu(), cpu[1], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(weights.cpu(), cpu[2], rtol=1e-4, atol=1e-5)
+    print(f"importance_select_op {tuple(windows.shape)} m={IMPORTANCE_M}: "
+          f"indices equal to the CPU plain run on all windows")
+    return launches
+
+
+def phase_scarce_fleet(torch, dev) -> dict:
+    """The scarce-harvest fleet: churn, brown-out and the intermittent
+    lane at full HAR width, N=3000, S=32."""
+    import repro_torch
+    from repro_torch.configs.seeker_har import HAR
+    from repro_torch.core.decision import (D6_PARTIAL, D7_EARLY_EXIT,
+                                           D8_STAGED_FULL, IntermittentConfig)
+    from repro_torch.core.energy import (BrownoutConfig, fleet_alive_traces,
+                                         fleet_harvest_traces)
+    from repro_torch.core.recovery import init_generator
+    from repro_torch.data.sensors import class_signatures, har_stream
+    from repro_torch.kernels import ops
+    from repro_torch.models.har import har_aux_init, har_init
+    from repro_torch.serving.fleet import draw_fleet_noise, to_device
+
+    n, s, cmp = N_NODES, SCARCE_SLOTS, COMPARE_SLOTS
+    g = torch.Generator(device=dev).manual_seed(2)
+    params = har_init(g, HAR)
+    inputs = dict(
+        signatures=class_signatures(device=dev), qdnn_params=params,
+        host_params=params,
+        gen_params=init_generator(g, HAR.window, HAR.channels), har_cfg=HAR,
+        aux_params=har_aux_init(g, HAR), initial_uj=INITIAL_UJ,
+        brownout=BrownoutConfig(*BROWNOUT_UJ),
+        intermittent=IntermittentConfig(min_exit_stage=1, exit_threshold=0.0))
+    windows, labels = har_stream(g, s, streams=n)             # (N, S, T, C)
+    labels = labels.T.contiguous()                             # (S, N)
+    harvest = fleet_harvest_traces(g, n, s) * SCARCITY
+    alive = fleet_alive_traces(g, n, s)
+    noise = draw_fleet_noise(g, s, n, HAR.window, HAR.channels)
+
+    def run():
+        return repro_torch.seeker_fleet_simulate(
+            windows, harvest, labels=labels, alive=alive, noise=noise,
+            device=dev, **inputs)
+
+    ops.reset_launch_counts()
+    res = run()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    # per slot: D2's three activations, stage 0's two and stage 1's one;
+    # per run: four backbone and two auxiliary-head weight tensors
+    want = {"signature_corr": s, "kmeans_coreset": s,
+            "fake_quant": 6 * s + 6, "importance_select": 0}
+    print(f"scarce fleet launches {launches}, expected {want}")
+    assert launches == want, (launches, want)
+
+    hist = res["decision_histogram"]
+    assert int(hist.sum()) == int(res["alive_slots"])
+    assert int((~alive).sum()) > 0 and int(res["brownout_events"]) > 0
+    assert all(int(hist[code]) > 0
+               for code in (D6_PARTIAL, D7_EARLY_EXIT, D8_STAGED_FULL))
+    assert bool(torch.isfinite(res["logits"]).all())
+    assert bool(torch.isfinite(res["stored_uj"]).all())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    profile_summary = _profile(torch, run, s, secs, "scarce_fleet")
+
+    # the first slots again, on the CPU through the plain versions
+    t1 = time.perf_counter()
+    cpu_inputs = {k: to_device(v, "cpu")
+                  if isinstance(v, (dict, tuple, torch.Tensor)) else v
+                  for k, v in inputs.items()}
+    cpu = repro_torch.seeker_fleet_simulate(
+        windows[:, :cmp].cpu(), harvest[:, :cmp].cpu(),
+        labels=labels[:cmp].cpu(), alive=alive[:, :cmp].cpu(),
+        noise={k: v[:cmp].cpu() for k, v in noise.items()}, device="cpu",
+        **cpu_inputs)
+    cpu_secs = time.perf_counter() - t1
+    card = {k: v[:cmp].cpu() for k, v in res.items()
+            if k in ("decisions", "alive", "it_emit")}
+    bo = res["brownout"][:cmp + 1].cpu()
+    card_counts = {
+        "brownout_events": int((bo[1:] & ~bo[:-1]).sum()),
+        "it_full": int(((card["it_emit"] == 2) & card["alive"]).sum()),
+        "it_early": int(((card["it_emit"] == 1) & card["alive"]).sum())}
+    cpu_counts = {k: int(cpu[k]) for k in card_counts}
+    agree = float((cpu["decisions"] == card["decisions"]).float().mean())
+    print(f"scarce fleet N={n}: the first {cmp} slots' decisions agree with "
+          f"the CPU plain run on {agree:.6f} of node-slots; counts card "
+          f"{card_counts}, cpu {cpu_counts}")
+    assert agree >= 0.99
+    for k, v in cpu_counts.items():
+        assert abs(card_counts[k] - v) <= 0.01 * max(v, 1), (k, card_counts)
+    fleet = dict(
+        nodes=n, slots=s, ms_per_slot=secs / s * 1e3,
+        windows_per_s=n * s / secs, decision_agreement_first_slots=agree,
+        compared_slots=cmp, card_counts_first_slots=card_counts,
+        cpu_counts_first_slots=cpu_counts, decision_histogram=hist.tolist(),
+        dead_slots=int((~alive).sum()),
+        brownout_slots=int(res["brownout_slots"]),
+        brownout_events=int(res["brownout_events"]),
+        it_full=int(res["it_full"]), it_early=int(res["it_early"]),
+        completed_frac=float(res["completed_frac"]),
+        fleet_accuracy=float(res["fleet_accuracy"]),
+        bytes_on_wire=int(res["bytes_on_wire_exact"]),
+        launches=launches, cpu_plain_seconds=cpu_secs,
+        profile=profile_summary)
+    print(f"scarce fleet: {fleet['ms_per_slot']:.3f} ms/slot, "
+          f"{fleet['windows_per_s']:.1f} windows/s on the card; histogram "
+          f"D0..D8 {hist.tolist()}; cpu plain run of {cmp} slots "
+          f"{cpu_secs:.1f} s")
+    return fleet
+
+
 _SOURCES = {
     "signature_corr": ("src/repro_torch/kernels/csrc/signature_corr.cu",
                        "src/repro/kernels/signature_corr.py:56"),
@@ -372,6 +566,8 @@ _SOURCES = {
                    "src/repro/kernels/fake_quant.py:58"),
     "kmeans_coreset": ("src/repro_torch/kernels/csrc/kmeans_coreset.cu",
                        "src/repro/kernels/kmeans_coreset.py:84"),
+    "importance_select": ("src/repro_torch/kernels/csrc/importance_select.cu",
+                          "src/repro/kernels/importance_select.py:91"),
 }
 
 
@@ -383,12 +579,18 @@ def main() -> int:
     dev = torch.device("cuda")
     table, extra = phase_kernels(torch, dev)
     fleet, launches = phase_fleet(torch, dev)
+    # each kernel's launches on its path: the fleet's three, and the
+    # sampler's entry point
+    launches["importance_select"] = phase_importance(torch, dev)[
+        "importance_select"]
+    scarce = phase_scarce_fleet(torch, dev)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **table[name])
                for name, (src, rep) in _SOURCES.items()]
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
-        dict(card=smi, kernels=kernels, timing=extra, fleet=fleet), indent=1))
+        dict(card=smi, kernels=kernels, timing=extra, fleet=fleet,
+             scarce_fleet=scarce), indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,10 +15,10 @@ import torch
 from .core.aac import AACTable
 from .core.energy import PredictorState
 from .core.recovery import GeneratorParams
-from .serving.edge_host import SeekerNodeState
+from .serving.edge_host import IntermittentState, SeekerNodeState
 
-__all__ = ["tensor", "har_params", "generator_params", "aac_table",
-           "node_state"]
+__all__ = ["tensor", "har_params", "aux_params", "generator_params",
+           "aac_table", "node_state", "intermittent_state"]
 
 
 def tensor(x, dtype: torch.dtype | None = None, device=None) -> torch.Tensor:
@@ -29,6 +29,11 @@ def tensor(x, dtype: torch.dtype | None = None, device=None) -> torch.Tensor:
 def har_params(params, device=None) -> dict[str, torch.Tensor]:
     """``repro.models.har.har_init`` params -> the port's HAR params."""
     return {k: tensor(v, torch.float32, device) for k, v in params.items()}
+
+
+def aux_params(params, device=None) -> dict[str, torch.Tensor]:
+    """``repro.models.har.har_aux_init`` heads -> the port's."""
+    return har_params(params, device)
 
 
 def generator_params(params, device=None) -> GeneratorParams:
@@ -52,3 +57,13 @@ def node_state(state, device=None) -> SeekerNodeState:
             history=tensor(state.predictor.history, torch.float32, device),
             pos=tensor(state.predictor.pos, torch.int32, device)),
         prev_label=tensor(state.prev_label, torch.int32, device))
+
+
+def intermittent_state(state, device=None) -> IntermittentState:
+    """A (stacked) ``repro.serving.edge_host.IntermittentState`` -> the
+    port's."""
+    return IntermittentState(
+        active=tensor(state.active, torch.bool, device),
+        stage=tensor(state.stage, torch.int32, device),
+        acts=tensor(state.acts, torch.float32, device),
+        src_slot=tensor(state.src_slot, torch.int32, device))

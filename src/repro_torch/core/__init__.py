@@ -12,12 +12,14 @@ from .recovery import (  # noqa: F401
 from .memo import pearson, signature_correlations  # noqa: F401
 from .energy import (  # noqa: F401
     EnergyCosts, TABLE2_COSTS, D5_RAW, harvest_trace, EH_SOURCES,
-    fleet_source_assignment, fleet_harvest_traces, supercap_step,
+    fleet_source_assignment, fleet_harvest_traces, fleet_phase_offsets,
+    fleet_alive_traces, BrownoutConfig, supercap_step,
     supercap_step_direct, SUPERCAP_CAP_UJ, SUPERCAP_CHARGE_EFF,
     PredictorState, predictor_init, predictor_update, predictor_forecast,
 )
 from .aac import AACTable, make_aac_table, select_k  # noqa: F401
 from .decision import (  # noqa: F401
     D0_MEMO, D1_DNN_FULL, D2_DNN_QUANT, D3_CLUSTER, D4_SAMPLING, DEFER,
-    D6_PARTIAL, D7_EARLY_EXIT, D8_STAGED_FULL, DecisionOutcome, choose_decision, decision_energy,
+    D6_PARTIAL, D7_EARLY_EXIT, D8_STAGED_FULL, N_INTERMITTENT_DECISIONS,
+    IntermittentConfig, DecisionOutcome, choose_decision, decision_energy,
 )

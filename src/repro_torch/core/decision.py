@@ -12,13 +12,16 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import dataclasses
+
 import torch
 
 from .energy import EnergyCosts
 
 __all__ = ["D0_MEMO", "D1_DNN_FULL", "D2_DNN_QUANT", "D3_CLUSTER",
            "D4_SAMPLING", "DEFER", "D6_PARTIAL", "D7_EARLY_EXIT",
-           "D8_STAGED_FULL", "DecisionOutcome",
+           "D8_STAGED_FULL", "N_INTERMITTENT_DECISIONS", "IntermittentConfig",
+           "DecisionOutcome",
            "choose_decision", "decision_energy"]
 
 D0_MEMO = 0
@@ -30,6 +33,31 @@ DEFER = 5
 D6_PARTIAL = 6
 D7_EARLY_EXIT = 7
 D8_STAGED_FULL = 8
+
+N_INTERMITTENT_DECISIONS = D8_STAGED_FULL + 1   # histogram bins, lane enabled
+
+
+@dataclasses.dataclass(frozen=True)
+class IntermittentConfig:
+    """The intermittent-inference lane's knobs.
+
+    ``min_exit_stage``: earliest completed stage (1 or 2) whose auxiliary
+    head may emit an early-exit result when the remaining stages are
+    unaffordable.  ``exit_threshold``: minimum auxiliary-head confidence
+    (max softmax) for an early exit; 0.0 exits whenever affordable, a value
+    above 1.0 disables early exit."""
+
+    min_exit_stage: int = 1
+    exit_threshold: float = 0.0
+
+    def __post_init__(self):
+        if self.min_exit_stage not in (1, 2):
+            raise ValueError(
+                f"min_exit_stage must be 1 or 2 (the stages with an "
+                f"auxiliary head), got {self.min_exit_stage}")
+        if not self.exit_threshold >= 0.0:
+            raise ValueError(
+                f"exit_threshold must be >= 0.0, got {self.exit_threshold}")
 
 
 class DecisionOutcome(NamedTuple):

@@ -5,9 +5,10 @@ the supercapacitor updates and the moving-average harvest predictor are the
 same float32 arithmetic in the same order, so a port run and a JAX run of
 the same slot agree to the last bit where the operations allow it.
 
-Harvest traces are drawn from an explicit ``torch.Generator`` instead of a
-``jax.random`` key.  They match the JAX traces in distribution, not value
-for value; parity tests hand both packages the same numpy trace.
+Harvest and alive traces are drawn from an explicit ``torch.Generator``
+instead of a ``jax.random`` key.  They match the JAX traces in
+distribution, not value for value; parity tests hand both packages the
+same numpy trace.
 """
 from __future__ import annotations
 
@@ -20,8 +21,9 @@ import torch
 
 __all__ = [
     "EnergyCosts", "TABLE2_COSTS", "D5_RAW", "harvest_trace", "EH_SOURCES",
-    "fleet_source_assignment", "fleet_harvest_traces", "supercap_step",
-    "supercap_step_direct", "SUPERCAP_CAP_UJ", "SUPERCAP_CHARGE_EFF",
+    "fleet_source_assignment", "fleet_harvest_traces", "fleet_phase_offsets",
+    "fleet_alive_traces", "supercap_step", "supercap_step_direct",
+    "SUPERCAP_CAP_UJ", "SUPERCAP_CHARGE_EFF", "BrownoutConfig",
     "PredictorState", "predictor_init", "predictor_update",
     "predictor_forecast",
 ]
@@ -156,6 +158,36 @@ def fleet_harvest_traces(generator: torch.Generator, n_nodes: int,
 
 
 # ---------------------------------------------------------------------------
+# Node churn: dropout/rejoin alive traces
+# ---------------------------------------------------------------------------
+
+def fleet_phase_offsets(generator: torch.Generator, n_nodes: int,
+                        period: int = 16) -> torch.Tensor:
+    """(N,) int32 per-node activity phase offsets in ``[0, period)``."""
+    return torch.randint(0, period, (n_nodes,), generator=generator,
+                         device=generator.device, dtype=torch.int32)
+
+
+def fleet_alive_traces(generator: torch.Generator, n_nodes: int,
+                       n_slots: int, *, duty: float = 0.75, period: int = 16,
+                       p_glitch: float = 0.05) -> torch.Tensor:
+    """(N, S) bool per-node dropout/rejoin process: node ``i`` is up while
+    its phase-offset duty cycle says so (``(t + phase_i) % period <
+    duty * period``) and it does not glitch (an independent per-slot
+    brown-out with probability ``p_glitch``).  ``duty=1.0, p_glitch=0.0``
+    gives the all-True trace."""
+    if not 0.0 <= duty <= 1.0:
+        raise ValueError(f"duty must be in [0, 1], got {duty}")
+    dev = generator.device
+    phases = fleet_phase_offsets(generator, n_nodes, period)
+    t = torch.arange(n_slots, dtype=torch.int32, device=dev)
+    on = (t[None, :] + phases[:, None]) % period < duty * period
+    glitch = torch.rand((n_nodes, n_slots), generator=generator,
+                        device=dev) < p_glitch
+    return on & ~glitch
+
+
+# ---------------------------------------------------------------------------
 # Supercap storage
 # ---------------------------------------------------------------------------
 
@@ -182,6 +214,23 @@ def supercap_step_direct(stored_uj: torch.Tensor, harvested_uj: torch.Tensor,
     direct = torch.minimum(spent_uj, harvested_uj)
     return torch.clamp(stored_uj + charge_eff * (harvested_uj - direct)
                        - (spent_uj - direct), 0.0, cap_uj)
+
+
+@dataclasses.dataclass(frozen=True)
+class BrownoutConfig:
+    """Supercapacitor brown-out hysteresis (µJ): a running node whose
+    post-slot charge falls below ``off_uj`` powers down (its carry freezes,
+    the harvester keeps trickle-charging) and reboots once the charge is
+    back to ``restart_uj``."""
+
+    off_uj: float = 5.0
+    restart_uj: float = 25.0
+
+    def __post_init__(self):
+        if not 0.0 <= self.off_uj <= self.restart_uj:
+            raise ValueError(
+                f"BrownoutConfig needs 0 <= off_uj <= restart_uj, got "
+                f"off_uj={self.off_uj}, restart_uj={self.restart_uj}")
 
 
 # ---------------------------------------------------------------------------

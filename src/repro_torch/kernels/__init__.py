@@ -9,9 +9,11 @@ Kernels:
                       repro.kernels.fake_quant)
     kmeans_coreset  — clustering-coreset engine, 4-round Lloyd (replaces
                       repro.kernels.kmeans_coreset)
+    importance_select — hardware importance sampler, top-m selection
+                      (replaces repro.kernels.importance_select)
 """
 from .ops import (  # noqa: F401
-    fake_quant_op, kmeans_coreset_op, launch_counts, reset_launch_counts,
-    signature_corr_op,
+    fake_quant_op, importance_select_op, kmeans_coreset_op, launch_counts,
+    reset_launch_counts, signature_corr_op,
 )
 from . import ref  # noqa: F401

@@ -37,6 +37,8 @@ _ENTRY_POINTS = {
     "signature_corr_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
     "fake_quant_launch": (_P, _P, _P, _LL, _I, _LL, _I, _F, _P),
     "kmeans_coreset_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "importance_select_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                                 _P),
 }
 
 

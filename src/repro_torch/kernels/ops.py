@@ -22,9 +22,11 @@ import torch
 from . import ref
 
 __all__ = ["signature_corr_op", "fake_quant_op", "kmeans_coreset_op",
-           "launch_counts", "reset_launch_counts", "kernel_library"]
+           "importance_select_op", "launch_counts", "reset_launch_counts",
+           "kernel_library"]
 
-_LAUNCHES = {"signature_corr": 0, "fake_quant": 0, "kmeans_coreset": 0}
+_LAUNCHES = {"signature_corr": 0, "fake_quant": 0, "kmeans_coreset": 0,
+             "importance_select": 0}
 _LIB: ctypes.CDLL | None = None
 
 
@@ -152,3 +154,31 @@ def kmeans_coreset_op(points: torch.Tensor, k: int, iters: int = 4):
     _launch(op, "kmeans_coreset_launch", dev, _ptr(points), _ptr(centers),
             _ptr(radii), _ptr(counts), b, n, d, k, iters)
     return centers, radii, counts
+
+
+def importance_select_op(windows: torch.Tensor, m: int, spread: float = 0.25,
+                         avg_width: int = 8):
+    """Deterministic top-m importance selection over a window batch:
+    (B, T, C) -> (indices (B, m) int32 ascending, values (B, m, C),
+    Horvitz-Thompson weights (B, m)).  The m indices of a window are
+    distinct, even where weights tie (``spread=0`` on a flat window)."""
+    op = "importance_select"
+    _check(op, "windows", windows, 3)
+    b, t, c = windows.shape
+    if not 1 <= m <= t or avg_width < 1:
+        raise ValueError(f"{op}: needs 1 <= m <= T and avg_width >= 1, got "
+                         f"m={m}, T={t}, avg_width={avg_width}")
+    if not _on_cuda(op, windows):
+        return ref.importance_select_ref(windows, m, spread, avg_width)
+    if t > 64 or c > 8 or m > 32:
+        raise ValueError(f"{op}: kernel takes T <= 64, C <= 8, m <= 32, "
+                         f"got T={t}, C={c}, m={m}")
+    dev = windows.device
+    idx = torch.empty((b, m), dtype=torch.int32, device=dev)
+    vals = torch.empty((b, m, c), dtype=torch.float32, device=dev)
+    weights = torch.empty((b, m), dtype=torch.float32, device=dev)
+    # the blend's constants as the plain version's float32 scalars round them
+    _launch(op, "importance_select_launch", dev, _ptr(windows), _ptr(idx),
+            _ptr(vals), _ptr(weights), b, t, c, m, avg_width, 1.0 - spread,
+            spread / t)
+    return idx, vals, weights

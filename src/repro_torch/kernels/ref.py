@@ -13,8 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["kmeans_coreset_ref", "signature_corr_ref", "fake_quant_ref",
-           "fake_quant_scale"]
+__all__ = ["kmeans_coreset_ref", "importance_select_ref",
+           "signature_corr_ref", "fake_quant_ref", "fake_quant_scale"]
 
 
 def kmeans_coreset_ref(points: torch.Tensor, k: int, iters: int = 4):
@@ -42,6 +42,46 @@ def kmeans_coreset_ref(points: torch.Tensor, k: int, iters: int = 4):
     dist = torch.sqrt(torch.gather(d2, -1, assign[..., None])[..., 0])
     radii = (onehot * dist[..., None]).amax(dim=1)
     return centers, radii, counts
+
+
+def importance_select_ref(windows: torch.Tensor, m: int, spread: float = 0.25,
+                          avg_width: int = 8):
+    """Deterministic top-m importance selection: the hardware sampler.
+
+    windows (B, T, C) float32 -> (indices (B, m) int32 ascending, values
+    (B, m, C), Horvitz-Thompson weights (B, m)).  Each sample's score is its
+    deviation from an edge-padded ``avg_width``-tap box moving average,
+    summed over channels, normalised per window and blended with a
+    ``spread`` uniform floor; the m best are kept, ties to the lower index.
+
+    The arithmetic is in the order of the Pallas body
+    (``repro.kernels.importance_select._select_kernel``), which the CUDA
+    kernel repeats: the shifted slices added j = 0..w-1, the channel sum
+    c = 0..C-1 and the normalising sum t = 0..T-1, each in sequence.  The
+    selection is a stable descending sort, so equal scores go to the lower
+    index, as ``lax.top_k`` gives them."""
+    b, t, c = windows.shape
+    pad_l = avg_width // 2
+    pad_r = avg_width - 1 - pad_l
+    xp = torch.cat([windows[:, :1].expand(b, pad_l, c), windows,
+                    windows[:, -1:].expand(b, pad_r, c)], dim=1)
+    acc = torch.zeros_like(windows)
+    for j in range(avg_width):
+        acc = acc + xp[:, j:j + t]
+    dev = (windows - acc / avg_width).abs()
+    detr = dev[..., 0]
+    for ci in range(1, c):
+        detr = detr + dev[..., ci]                          # (B, T)
+    total = torch.zeros_like(detr[:, 0])
+    for ti in range(t):
+        total = total + detr[:, ti]
+    w = detr / torch.clamp(total, min=1e-9)[:, None]
+    w = (1.0 - spread) * w + spread / t
+    order = torch.sort(w, dim=-1, descending=True, stable=True).indices
+    idx = torch.sort(order[:, :m], dim=-1).values
+    vals = torch.gather(windows, 1, idx[..., None].expand(b, m, c))
+    weights = 1.0 / torch.clamp(m * torch.gather(w, 1, idx), min=1e-9)
+    return idx.to(torch.int32), vals, weights
 
 
 def signature_corr_ref(windows: torch.Tensor,

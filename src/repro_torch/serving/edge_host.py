@@ -13,29 +13,39 @@ nodes written out — and take their random draws as tensors:
 Every branch (D2's quantized DNN, D3's cluster coresets, D4's sampling
 coreset and both host recoveries) runs for every node every slot; the
 decision only selects among the results, as in the JAX engine.
+
+The intermittent lane (:func:`intermittent_lane_step`, codes D6/D7/D8) is
+batched the same way: its three inference stages run for every node every
+slot, and each node's progress selects among them.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from ..core.aac import AACTable, select_k
 from ..core.coreset import (ClusterCoreset, SamplingCoreset,
                             channel_cluster_coresets, importance_coreset,
                             raw_payload_bytes, sampling_payload_bytes)
 from ..core.decision import (D0_MEMO, D2_DNN_QUANT, D3_CLUSTER, D4_SAMPLING,
-                             DEFER, choose_decision)
+                             D6_PARTIAL, D7_EARLY_EXIT, D8_STAGED_FULL, DEFER,
+                             IntermittentConfig, choose_decision)
 from ..core.energy import (EnergyCosts, PredictorState, predictor_forecast,
                            predictor_init, predictor_update, supercap_step,
                            supercap_step_direct)
 from ..core.recovery import (GeneratorParams, recover_cluster_window,
                              recover_sampling_window)
-from ..models.har import HARConfig, har_apply, har_apply_quantized_nodes
+from ..models.har import (HARConfig, har_act_buffer, har_apply,
+                          har_apply_aux, har_apply_quantized_nodes,
+                          har_apply_stage)
 
 __all__ = ["SeekerNodeState", "SensorStepOut", "seeker_node_init",
            "seeker_sensor_step_given_corr", "seeker_host_step",
-           "seeker_simulate"]
+           "seeker_simulate", "IntermittentState", "intermittent_node_init",
+           "intermittent_fleet_init", "IntermittentLaneOut",
+           "intermittent_lane_step"]
 
 
 class SeekerNodeState(NamedTuple):
@@ -174,37 +184,198 @@ def seeker_host_step(out: SensorStepOut, dirs: torch.Tensor,
                                                onehot)))
 
 
+# ---------------------------------------------------------------------------
+# Intermittent-inference lane (decision codes D6/D7/D8)
+# ---------------------------------------------------------------------------
+
+
+class IntermittentState(NamedTuple):
+    """Per-node staged-inference progress, the intermittent lane's part of
+    the fleet carry.
+
+    ``active``: a staged inference is in flight.  ``stage``: completed
+    stages (1..3).  ``acts``: (A,) flat buffer holding the last completed
+    stage's output (A = :func:`repro_torch.models.har.har_act_buffer`).
+    ``src_slot``: the global slot whose window is in flight; emissions are
+    scored against that slot's label."""
+
+    active: torch.Tensor     # () / (N,) bool
+    stage: torch.Tensor      # () / (N,) int32
+    acts: torch.Tensor       # (A,) / (N, A) float32
+    src_slot: torch.Tensor   # () / (N,) int32
+
+
+def intermittent_node_init(har_cfg: HARConfig,
+                           device=None) -> IntermittentState:
+    """Idle single-node lane state (nothing in flight)."""
+    return IntermittentState(
+        active=torch.zeros((), dtype=torch.bool, device=device),
+        stage=torch.zeros((), dtype=torch.int32, device=device),
+        acts=torch.zeros((har_act_buffer(har_cfg),), dtype=torch.float32,
+                         device=device),
+        src_slot=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def intermittent_fleet_init(n_nodes: int, har_cfg: HARConfig,
+                            device=None) -> IntermittentState:
+    """Stacked idle lane state for ``n_nodes`` (leading node axis)."""
+    return IntermittentState(
+        active=torch.zeros((n_nodes,), dtype=torch.bool, device=device),
+        stage=torch.zeros((n_nodes,), dtype=torch.int32, device=device),
+        acts=torch.zeros((n_nodes, har_act_buffer(har_cfg)),
+                         dtype=torch.float32, device=device),
+        src_slot=torch.zeros((n_nodes,), dtype=torch.int32, device=device))
+
+
+class IntermittentLaneOut(NamedTuple):
+    engaged: torch.Tensor       # (N,) bool: the lane overrode this slot
+    decision: torch.Tensor      # (N,) int32: D6/D7/D8 or DEFER
+    spend: torch.Tensor         # (N,) float µJ actually consumed
+    payload_bytes: torch.Tensor # (N,) float: 3 B early exit, 2 B full
+    stored_uj: torch.Tensor     # (N,) post-slot supercap charge
+    prev_label: torch.Tensor    # (N,) int32 AAC continuity after the slot
+    emit: torch.Tensor          # (N,) int32: 0 none, 1 early exit, 2 full
+    emit_label: torch.Tensor    # (N,) int32 (valid where emit > 0)
+    emit_conf: torch.Tensor     # (N,) float aux-head max softmax
+    emit_src: torch.Tensor      # (N,) int32 source slot of the window
+    emit_stage: torch.Tensor    # (N,) int32 depth at emission
+    state: IntermittentState
+
+
+def intermittent_lane_step(window: torch.Tensor, state: SeekerNodeState,
+                           harvested_uj: torch.Tensor,
+                           ladder_decision: torch.Tensor,
+                           it: IntermittentState, slot: int, *, qp: dict,
+                           qa: dict, har_cfg: HARConfig, costs: EnergyCosts,
+                           quant_bits: int, cfg: IntermittentConfig,
+                           reserve_uj: float = 0.0) -> IntermittentLaneOut:
+    """One slot of the partial-inference lane for N nodes, after the ladder.
+
+    The lane engages where an inference is in flight (it resumes before new
+    work starts) or where the ladder chose DEFER.  Under strict
+    store-and-execute accounting (every µJ spent is paid from ``stored +
+    harvested`` this slot) it pays the sensing cost, runs as many remaining
+    stages as the budget affords (:meth:`EnergyCosts.stage_costs`), then
+    emits D8 at full depth with an affordable ``tx_result``, or an early
+    exit D7 from the auxiliary head (at least ``cfg.min_exit_stage`` stages
+    done, ``aux_head + tx_result`` affordable, confidence at least
+    ``cfg.exit_threshold``), or suspends: D6 with progress kept, DEFER when
+    nothing was started.  Stages and emissions also leave ``reserve_uj``
+    behind (the brown-out threshold).
+
+    ``qp`` and ``qa`` are the backbone and auxiliary heads, quantized once
+    per run; ``slot`` is the global index of this slot.  All three stages
+    run for every node (three ``fake_quant`` launches) and each node's
+    progress selects among them."""
+    sense, tx, aux_c = costs.sense, costs.tx_result, costs.aux_head
+    stage_cost = costs.stage_costs(quant_bits)
+    n = window.shape[0]
+
+    engaged = it.active | (ladder_decision == DEFER)
+    budget = state.stored_uj + harvested_uj
+    can_run = engaged & (budget >= sense)
+    zero = torch.zeros_like(budget)
+    spend = torch.where(can_run, torch.full_like(budget, sense), zero)
+    rem = budget - spend
+
+    # resume-before-start: an in-flight inference owns the slot; otherwise
+    # this slot's window is the stage-0 input
+    fresh = can_run & ~it.active
+    win_flat = F.pad(window.reshape(n, -1),
+                     (0, it.acts.shape[1] - window[0].numel()))
+    buf = torch.where(fresh[:, None], win_flat, it.acts)
+    prog = torch.where(fresh, 0, it.stage)
+    src = torch.where(fresh, slot, it.src_slot).to(torch.int32)
+
+    # masked stage walk: a stage runs only where it is the next one and
+    # strictly affordable from what remains
+    for si in range(3):
+        out_i = har_apply_stage(qp, buf, si, har_cfg, quant_bits)
+        run_i = can_run & (prog == si) & (rem >= stage_cost[si] + reserve_uj)
+        buf = torch.where(run_i[:, None], out_i, buf)
+        prog = torch.where(run_i, prog + 1, prog)
+        rem = torch.where(run_i, rem - stage_cost[si], rem)
+        spend = torch.where(run_i, spend + stage_cost[si], spend)
+
+    logits_full = buf[:, :har_cfg.n_classes]
+    done = can_run & (prog == 3)
+    emit_full = done & (rem >= tx + reserve_uj)
+
+    aux_logits = har_apply_aux(qa, buf, prog, har_cfg)
+    conf = torch.softmax(aux_logits, dim=-1).amax(dim=-1)
+    emit_early = (can_run & ~done & (prog >= cfg.min_exit_stage)
+                  & (rem >= aux_c + tx + reserve_uj)
+                  & (conf >= cfg.exit_threshold))
+
+    spend = (spend + torch.where(emit_full, torch.full_like(zero, tx), zero)
+             + torch.where(emit_early, torch.full_like(zero, aux_c + tx),
+                           zero))
+    emitted = emit_full | emit_early
+    label = torch.where(emit_full, torch.argmax(logits_full, dim=-1),
+                        torch.argmax(aux_logits, dim=-1)).to(torch.int32)
+
+    def code(c):
+        return torch.full_like(prog, c)
+
+    decision = torch.where(
+        emit_full, code(D8_STAGED_FULL),
+        torch.where(emit_early, code(D7_EARLY_EXIT),
+                    torch.where(can_run & (prog > 0), code(D6_PARTIAL),
+                                code(DEFER))))
+    # D7: a 2-B result and a 1-B confidence tag; D8: a 2-B result
+    payload = torch.where(emit_full, torch.full_like(zero, 2.0),
+                          torch.where(emit_early, torch.full_like(zero, 3.0),
+                                      zero))
+    stored = supercap_step_direct(state.stored_uj, harvested_uj, spend)
+    new_it = IntermittentState(
+        active=torch.where(can_run, ~emitted & (prog > 0), it.active),
+        stage=torch.where(can_run, prog, it.stage),
+        acts=buf, src_slot=src)
+    return IntermittentLaneOut(
+        engaged=engaged, decision=decision, spend=spend,
+        payload_bytes=payload, stored_uj=stored,
+        prev_label=torch.where(emitted, label, state.prev_label),
+        emit=torch.where(emit_full, code(2),
+                         torch.where(emit_early, code(1), code(0))),
+        emit_label=label, emit_conf=conf, emit_src=src, emit_stage=prog,
+        state=new_it)
+
+
 def seeker_simulate(windows, labels, harvest, *, signatures, qdnn_params,
                     host_params, gen_params, har_cfg: HARConfig,
                     aac_table: AACTable | None = None,
                     costs: EnergyCosts | None = None, n_sensors: int = 3,
                     generator: torch.Generator | None = None,
                     noise: dict | None = None, quant_bits: int = 16,
-                    brownout=None, intermittent=None, device=None):
+                    brownout=None, intermittent=None,
+                    aux_params: dict | None = None, device=None):
     """Run the Seeker system over one (S, T, C) window stream replicated to
     ``n_sensors`` nodes, ensembling their host logits (the paper's sensor
     ensemble): a thin wrapper over
     :func:`repro_torch.serving.fleet.seeker_fleet_simulate`.
 
-    ``harvest`` is (S,) µJ per slot, shared by the sensors.  The brown-out
-    and intermittent lanes are not ported yet: a value other than ``None``
-    raises ``NotImplementedError``."""
+    ``harvest`` is (S,) µJ per slot, shared by the sensors.  ``brownout``
+    and ``intermittent`` (with ``aux_params``) are the fleet engine's lanes;
+    with ``intermittent`` a D6 suspension does not count as completed."""
     from .fleet import seeker_fleet_simulate, to_device
 
+    extra = ({} if intermittent is None else
+             dict(intermittent=intermittent, aux_params=aux_params))
     fleet = seeker_fleet_simulate(
         windows, to_device(harvest, device)[None].expand(n_sensors, -1),
         signatures=signatures, qdnn_params=qdnn_params,
         host_params=host_params, gen_params=gen_params, har_cfg=har_cfg,
         aac_table=aac_table, costs=costs, generator=generator, noise=noise,
-        quant_bits=quant_bits, brownout=brownout, intermittent=intermittent,
-        device=device)
+        quant_bits=quant_bits, brownout=brownout, device=device, **extra)
     s, t = fleet["decisions"].shape[0], to_device(windows, device).shape[-2]
     labels = to_device(labels, device)
     ens_logits = fleet["logits"].mean(dim=1)                 # (S, L)
     preds = torch.argmax(ens_logits, dim=-1)
     completed = fleet["decisions"][:, 0] != DEFER
+    if intermittent is not None:
+        completed = completed & (fleet["decisions"][:, 0] != D6_PARTIAL)
     hit = (preds == labels) & completed
-    return {
+    out = {
         "preds": preds,
         "labels": labels,
         "accuracy_completed": hit.sum() / torch.clamp(completed.sum(), min=1),
@@ -217,4 +388,15 @@ def seeker_simulate(windows, labels, harvest, *, signatures, qdnn_params,
         "stored_uj": fleet["stored_uj"][:, 0],
         "k_trace": fleet["k_trace"][:, 0],
         "alive": fleet["alive"][:, 0],
+        "brownout": fleet["brownout"][:, 0],
+        "brownout_slots": fleet["brownout_slots"],
+        "brownout_events": fleet["brownout_events"],
     }
+    if intermittent is not None:
+        out.update({
+            "it_emit": fleet["it_emit"][:, 0],
+            "it_stage": fleet["it_stage"][:, 0],
+            "it_full": fleet["it_full"],
+            "it_early": fleet["it_early"],
+        })
+    return out

@@ -45,9 +45,11 @@ STORED_TOL = dict(rtol=1e-6, atol=1e-5)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def jax_fleet_noise(key, n, s, t, c, latent=16):
+def jax_fleet_noise(key, n, s, t, c, latent=16, alive=None):
     """(S, N, ...) numpy noise, drawn with the JAX engine's keys and split
-    discipline, in the layout of ``repro_torch`` ``noise=``."""
+    discipline, in the layout of ``repro_torch`` ``noise=``.  ``alive`` is
+    the (S, N) alive lane the JAX engine emitted: a node's key stays frozen
+    through the slots it did not run (fleet.py:458)."""
     keys = fleet_node_keys(key, n)
 
     def host_draws(k):
@@ -61,16 +63,22 @@ def jax_fleet_noise(key, n, s, t, c, latent=16):
         dirs, radii = jax.vmap(per_channel)(jax.random.split(k1, c))
         return dirs, radii, jax.random.normal(k2, (latent,), jnp.float32)
 
-    out = {k: [] for k in ("u", "dirs", "radii_u", "latent")}
-    for _ in range(s):
+    @jax.jit
+    def slot_draws(keys):
         ks = jax.vmap(lambda kk: jax.random.split(kk, 3))(keys)
-        out["u"].append(jax.vmap(lambda k: jax.random.uniform(
-            k, (t,), minval=1e-9, maxval=1.0))(ks[:, 1]))
-        d, r, lat = jax.vmap(host_draws)(ks[:, 2])
+        u = jax.vmap(lambda k: jax.random.uniform(
+            k, (t,), minval=1e-9, maxval=1.0))(ks[:, 1])
+        return ks[:, 0], u, *jax.vmap(host_draws)(ks[:, 2])
+
+    out = {k: [] for k in ("u", "dirs", "radii_u", "latent")}
+    for si in range(s):
+        nxt, u, d, r, lat = slot_draws(keys)
+        out["u"].append(u)
         out["dirs"].append(d)
         out["radii_u"].append(r)
         out["latent"].append(lat)
-        keys = ks[:, 0]
+        keys = nxt if alive is None else jnp.where(
+            jnp.asarray(alive[si])[:, None], nxt, keys)
     return {k: np.stack([np.asarray(x) for x in v]) for k, v in out.items()}
 
 
@@ -240,8 +248,7 @@ def test_default_device_is_cuda_and_never_falls_back(setup, monkeypatch):
             np.asarray(d["wins"]), np.asarray(d["harvest"]), **d["port"])
 
 
-@pytest.mark.parametrize("lane", ["alive", "brownout", "intermittent",
-                                  "task", "telemetry"])
+@pytest.mark.parametrize("lane", ["task", "telemetry"])
 def test_unported_lanes_raise(setup, lane):
     d = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -21,8 +21,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)   # the suite runs several test workers at once
 
-from repro.kernels import (fake_quant_op, kmeans_coreset_op,  # noqa: E402
-                           signature_corr_op)
+from repro.kernels import (fake_quant_op, importance_select_op,  # noqa: E402
+                           kmeans_coreset_op, signature_corr_op)
 from repro.kernels import ref  # noqa: E402
 
 from repro_torch.kernels import build, ops  # noqa: E402
@@ -31,6 +31,8 @@ REPO = Path(__file__).resolve().parent.parent
 CORR_TOL = dict(rtol=1e-4, atol=1e-5)
 QUANT_TOL = dict(rtol=1e-5, atol=1e-6)
 KMEANS_TOL = dict(rtol=1e-5, atol=1e-5)
+IMP_VALS_TOL = dict(rtol=1e-5, atol=1e-6)
+IMP_WEIGHTS_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def _normal(seed, shape, scale=1.0):
@@ -147,6 +149,52 @@ def test_kmeans_argmin_ties_go_to_lowest_index():
 
 
 # ---------------------------------------------------------------------------
+# importance_select
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,t,c", [(4, 60, 3), (8, 48, 1), (13, 64, 5)])
+@pytest.mark.parametrize("m", [8, 20])
+def test_importance_plain_matches_jax(b, t, c, m):
+    """Against both JAX paths at tests/test_kernels.py's shapes: indices
+    exactly, values and weights at that file's tolerances."""
+    w = _normal(9, (b, t, c))
+    i1, v1, w1 = ops.importance_select_op(_t(w), m)
+    assert i1.dtype == torch.int32 and tuple(v1.shape) == (b, m, c)
+    for impl in ("ref", "pallas"):
+        i2, v2, w2 = importance_select_op(w, m=m, impl=impl)
+        np.testing.assert_array_equal(i1.numpy(), np.asarray(i2), impl)
+        np.testing.assert_allclose(v1.numpy(), np.asarray(v2),
+                                   **IMP_VALS_TOL)
+        np.testing.assert_allclose(w1.numpy(), np.asarray(w2),
+                                   **IMP_WEIGHTS_TOL)
+
+
+def test_importance_flat_window_without_spread_keeps_distinct_indices():
+    """spread=0 on a constant window: every weight is 0.  The port, like
+    the JAX reference, picks the m lowest indices; the Pallas body repeats
+    index 0 (ROADMAP Queue 3)."""
+    w = np.ones((3, 60, 3), np.float32)
+    idx, vals, weights = ops.importance_select_op(_t(w), 8, spread=0.0)
+    i2, _, w2 = importance_select_op(w, m=8, spread=0.0, impl="ref")
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(i2))
+    np.testing.assert_array_equal(idx.numpy(), np.tile(np.arange(8), (3, 1)))
+    np.testing.assert_allclose(weights.numpy(), np.asarray(w2),
+                               **IMP_WEIGHTS_TOL)
+    np.testing.assert_array_equal(vals.numpy(), np.ones((3, 8, 3)))
+
+
+def test_importance_ties_go_to_the_lower_index():
+    # a window whose deviation is the same at every sample but one: the
+    # remaining picks are the lowest indices
+    w = np.zeros((1, 16, 1), np.float32)
+    w[0, ::2, 0] = 1.0
+    w[0, 9, 0] = 5.0
+    idx, _, _ = ops.importance_select_op(_t(w), 4, avg_width=1)
+    i2, _, _ = importance_select_op(w, m=4, avg_width=1, impl="pallas")
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(i2))
+
+
+# ---------------------------------------------------------------------------
 # Wrapper contract
 # ---------------------------------------------------------------------------
 
@@ -161,6 +209,8 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(ValueError, match="exclude"):
         ops.fake_quant_op(torch.zeros((4, 3)), 8, per_channel=True,
                           per_sample=True)
+    with pytest.raises(ValueError, match="m <= T"):
+        ops.importance_select_op(torch.zeros((2, 10, 3)), 11)
 
 
 def test_cpu_ops_count_no_launches():
@@ -168,8 +218,10 @@ def test_cpu_ops_count_no_launches():
     ops.signature_corr_op(torch.zeros((2, 60, 3)), torch.ones((3, 60, 3)))
     ops.fake_quant_op(torch.ones((2, 3)), 8)
     ops.kmeans_coreset_op(torch.zeros((2, 60, 2)), 4)
+    ops.importance_select_op(torch.ones((2, 60, 3)), 8)
     assert ops.launch_counts() == {"signature_corr": 0, "fake_quant": 0,
-                                   "kmeans_coreset": 0}
+                                   "kmeans_coreset": 0,
+                                   "importance_select": 0}
 
 
 def test_ops_import_and_cpu_path_need_no_nvcc():
@@ -187,6 +239,9 @@ def test_build_names_library_by_source_hash():
     assert path.parent == REPO / "build" / "repro_torch"
     assert path.name.startswith("librepro_torch_kernels-")
     assert {p.name for p in build.CSRC.glob("*.cu")} == {
-        "signature_corr.cu", "fake_quant.cu", "kmeans_coreset.cu"}
+        "signature_corr.cu", "fake_quant.cu", "kmeans_coreset.cu",
+        "importance_select.cu"}
+    assert set(build._ENTRY_POINTS) == {
+        p.stem + "_launch" for p in build.CSRC.glob("*.cu")}
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "--use_fast_math" not in build.NVCC_FLAGS
