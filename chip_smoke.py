@@ -11,11 +11,15 @@ Phases (any failure exits non-zero and prints no result):
 1. card: requires CUDA, prints ``nvidia-smi``'s name and power limit and
    switches TF32 off for convolutions and matmuls;
 2. build: compiles ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a into
-   ``build/repro_torch/`` and prints the seconds and ptxas's register report;
+   ``build/repro_torch/``, prints the seconds and every kernel's ptxas
+   registers and spills, and fails on a spill;
 3. kernels: each kernel against its plain version on the card at the main
-   path's shapes, with its time, the plain version's time, the time of one
-   PyTorch call computing the same function where there is one, and the
-   least time the card could take (its bound);
+   path's shapes, and ``signature_corr`` and ``kmeans_coreset`` also at
+   off-fleet shapes that run every instantiation and ragged edge; two
+   launches of each kernel on the same input must be bit-identical.  With
+   each kernel's time, the plain version's time, the time of one PyTorch
+   call computing the same function where there is one, and the least time
+   the card could take (its bound);
 4. fleet: ``repro_torch.seeker_fleet_simulate`` at full HAR width, N=3000
    nodes, S=8 slots, per-node streams, counting each kernel's launches; the
    same run on the CPU through the plain versions, with the same noise,
@@ -164,14 +168,49 @@ def phase_card(torch) -> str:
     return smi
 
 
-def phase_build():
+def phase_build() -> dict:
+    """Build the kernels; print and return ptxas's registers and spills of
+    every kernel, and fail on a spill."""
     from repro_torch.kernels import build, ops
     path, log, secs = build.build(ptxas_verbose=True)
     ops.kernel_library()
     print(f"build: {path.name} in {secs:.1f} s")
-    for line in log.splitlines():
-        if "Used" in line or "spill" in line or line.startswith("---"):
-            print("  " + line.strip())
+    report = build.ptxas_report(log)
+    for name, row in report.items():
+        print(f"  ptxas {name}: {row['registers']} registers, spill stores "
+              f"{row['spill_stores']} B, spill loads {row['spill_loads']} B")
+    assert len(report) >= len(_SOURCES), report
+    spills = [n for n, r in report.items()
+              if r["spill_stores"] or r["spill_loads"]]
+    assert not spills, f"ptxas reports spills in {spills}"
+    return report
+
+
+def _same_twice(torch, fn) -> None:
+    """Two launches on the same input give bit-identical outputs."""
+    first, second = fn(), fn()
+    if isinstance(first, torch.Tensor):
+        first, second = (first,), (second,)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _check_kmeans(torch, ops, ref, pts, k, iters) -> float:
+    """The kernel against its plain version: counts equal on at least 99.9%
+    of the clouds, centres and radii within 1e-4 where they are; two
+    launches bit-identical.  Returns the largest difference."""
+    kc, kr, kn = ops.kmeans_coreset_op(pts, k, iters)
+    pc, pr, pn = ref.kmeans_coreset_ref(pts, k, iters)
+    same = (kn == pn).all(dim=-1)
+    n_diff = int((~same).sum())
+    print(f"kmeans_coreset {tuple(pts.shape)} k={k}: counts differ on "
+          f"{n_diff} of {pts.shape[0]} clouds (a point within an ulp of "
+          f"equidistant may flip)")
+    assert float(same.float().mean()) >= 0.999
+    torch.testing.assert_close(kc[same], pc[same], rtol=0, atol=1e-4)
+    torch.testing.assert_close(kr[same], pr[same], rtol=0, atol=1e-4)
+    _same_twice(torch, lambda: ops.kmeans_coreset_op(pts, k, iters))
+    return max(float((kc[same] - pc[same]).abs().max()),
+               float((kr[same] - pr[same]).abs().max()))
 
 
 def phase_kernels(torch, dev) -> dict:
@@ -194,6 +233,19 @@ def phase_kernels(torch, dev) -> dict:
     assert bool((got.abs() <= 1 + 1e-4).all())
     diag = torch.diag(ops.signature_corr_op(sigs, sigs))
     torch.testing.assert_close(diag, torch.ones_like(diag), rtol=0, atol=1e-4)
+    _same_twice(torch, lambda: ops.signature_corr_op(windows, sigs))
+    corr_err = float((got - want).abs().max())
+    # off the fleet: the widest window and bank, a ragged last tile
+    w_off = torch.randn((1001, 64, 4), generator=g, device=dev)
+    s_off = torch.randn((7, 64, 4), generator=g, device=dev)
+    got_off = ops.signature_corr_op(w_off, s_off)
+    want_off = ref.signature_corr_ref(w_off, s_off)
+    torch.testing.assert_close(got_off, want_off, rtol=1e-4, atol=1e-5)
+    _same_twice(torch, lambda: ops.signature_corr_op(w_off, s_off))
+    corr_err = max(corr_err, float((got_off - want_off).abs().max()))
+    for shape in ((b, l, t, c), (1001, 7, 64, 4), (l, l, t, c)):
+        print(f"signature_corr geometry {shape}: "
+              f"{ops.signature_corr_geometry(*shape)}")
     # one einsum over operands centred and normalised beforehand computes
     # the same (B, L) function: the library yardstick
     wm = windows - windows.mean(1, keepdim=True)
@@ -208,9 +260,8 @@ def phase_kernels(torch, dev) -> dict:
         torch, lambda: ops.signature_corr_op(windows, sigs),
         "signature_corr_kernel", lambda: ref.signature_corr_ref(windows, sigs),
         lambda: torch.einsum("btc,ltc->bl", a_op, b_op))
-    table["signature_corr"] = dict(
-        max_abs_err=float((got - want).abs().max()), bound_ms=bound,
-        bound_by=by, **times)
+    table["signature_corr"] = dict(max_abs_err=corr_err, bound_ms=bound,
+                                   bound_by=by, **times)
 
     # --- fake_quant: one slot's three per-node activations, and weights ----
     acts = [torch.randn(shape, generator=g, device=dev) * 3.0
@@ -231,6 +282,8 @@ def phase_kernels(torch, dev) -> dict:
             assert bool(((got.reshape(x2d.shape) - x2d).abs()
                          <= half + 1e-6).all())
             err = max(err, float((got.reshape(x2d.shape) - want).abs().max()))
+            _same_twice(torch, lambda: ops.fake_quant_op(
+                x, bits, per_sample=per_sample))
 
     # one slot's three launches; the kernel's device time leaves out the
     # wrapper's amax reduction, and the plain version and the library call
@@ -267,15 +320,17 @@ def phase_kernels(torch, dev) -> dict:
     cols = windows.transpose(1, 2)[..., None]                   # (B, C, T, 1)
     pts = points_from_window(cols).reshape(-1, t, 2).contiguous()
     k, iters = 12, 4
-    kc, kr, kn = ops.kmeans_coreset_op(pts, k, iters)
-    pc, pr, pn = ref.kmeans_coreset_ref(pts, k, iters)
-    same = (kn == pn).all(dim=-1)
-    n_diff = int((~same).sum())
-    print(f"kmeans_coreset: counts differ on {n_diff} of {pts.shape[0]} "
-          f"clouds (a point within an ulp of equidistant may flip)")
-    assert float(same.float().mean()) >= 0.999
-    torch.testing.assert_close(kc[same], pc[same], rtol=0, atol=1e-4)
-    torch.testing.assert_close(kr[same], pr[same], rtol=0, atol=1e-4)
+    err = _check_kmeans(torch, ops, ref, pts, k, iters)
+    # off the fleet: the (32, 4) instantiation at the widest cloud, and a
+    # ragged block of clouds whose N is not a multiple of the lane group
+    for shape, kk in (((999, 64, 4), 32), ((13, 37, 1), 5)):
+        off = torch.randn(shape, generator=g, device=dev)
+        err = max(err, _check_kmeans(torch, ops, ref, off, kk, iters))
+        print(f"kmeans_coreset geometry {shape} k={kk}: "
+              f"{ops.kmeans_coreset_geometry(*shape, kk)}")
+    geo = ops.kmeans_coreset_geometry(*pts.shape, k)
+    print(f"kmeans_coreset geometry {tuple(pts.shape)} k={k}: {geo}, "
+          f"{geo.waves} wave(s)")
     nb = pts.shape[0]
     n, d = pts.shape[1:]
     flops = ((iters + 1) * nb * n * k * 3 * d + iters * nb * n * d
@@ -284,9 +339,8 @@ def phase_kernels(torch, dev) -> dict:
     times, extra["kmeans_coreset"] = _timings(
         torch, lambda: ops.kmeans_coreset_op(pts, k, iters),
         "kmeans_coreset_kernel", lambda: ref.kmeans_coreset_ref(pts, k, iters))
-    table["kmeans_coreset"] = dict(
-        max_abs_err=float((kc[same] - pc[same]).abs().max()), bound_ms=bound,
-        bound_by=by, **times)
+    table["kmeans_coreset"] = dict(max_abs_err=err, bound_ms=bound,
+                                   bound_by=by, **times)
 
     # --- importance_select: the HAR windows, m=20, and one batch at the
     # JAX tests' (13, 64, 5) with m=8 ----------------------------------
@@ -304,6 +358,7 @@ def phase_kernels(torch, dev) -> dict:
         torch.testing.assert_close(kw, pw, rtol=1e-4, atol=1e-5)
         err = max(err, float((kv - pv).abs().max()),
                   float((kw - pw).abs().max()))
+        _same_twice(torch, lambda: ops.importance_select_op(x, mm))
     # bytes: windows in, indices, values and weights out; operations per
     # sample: the box sum, divide, subtract and abs per channel, the channel
     # and time sums, the blend, m argmax comparisons; 3 per output weight
@@ -575,7 +630,7 @@ def main() -> int:
     import torch
     smi = phase_card(torch)
     sys.path.insert(0, str(REPO / "src"))
-    phase_build()
+    ptxas = phase_build()
     dev = torch.device("cuda")
     table, extra = phase_kernels(torch, dev)
     fleet, launches = phase_fleet(torch, dev)
@@ -589,8 +644,8 @@ def main() -> int:
                for name, (src, rep) in _SOURCES.items()]
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
-        dict(card=smi, kernels=kernels, timing=extra, fleet=fleet,
-             scarce_fleet=scarce), indent=1))
+        dict(card=smi, kernels=kernels, timing=extra, ptxas=ptxas,
+             fleet=fleet, scarce_fleet=scarce), indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -22,7 +23,7 @@ import time
 from pathlib import Path
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "library_path",
-           "build", "load"]
+           "build", "load", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -34,9 +35,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ENTRY_POINTS = {
-    "signature_corr_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # win, sig, out, B, L, T, C, then the geometry: tile, blocks, threads,
+    # shared-memory bytes
+    "signature_corr_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _P),
     "fake_quant_launch": (_P, _P, _P, _LL, _I, _LL, _I, _F, _P),
-    "kmeans_coreset_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # pts, centres, radii, counts, B, N, D, K, iters, then the geometry:
+    # variant, blocks, threads, shared-memory bytes
+    "kmeans_coreset_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _P),
     "importance_select_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                                  _P),
 }
@@ -72,10 +79,13 @@ def build(ptxas_verbose: bool = False) -> tuple[Path, str, float]:
     """Compile and link the kernels unless this exact build exists.
 
     Returns ``(library path, compiler log, seconds spent)``; the log holds
-    ``-Xptxas -v``'s register and spill report when ``ptxas_verbose``."""
+    ``-Xptxas -v``'s register and spill report when ``ptxas_verbose``, and
+    is kept beside the library, so a later call that finds the build
+    returns the log it was built with."""
     out = library_path()
+    log_path = out.with_suffix(".log")
     if out.exists():
-        return out, "", 0.0
+        return out, log_path.read_text() if log_path.exists() else "", 0.0
     nvcc = find_nvcc()
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -104,8 +114,29 @@ def build(ptxas_verbose: bool = False) -> tuple[Path, str, float]:
                              stderr=subprocess.STDOUT, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{res.stdout}")
+        log_path.write_text("\n".join(logs))
         os.replace(so_tmp, out)
     return out, "\n".join(logs), time.perf_counter() - t0
+
+
+def ptxas_report(log: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes of every kernel in a ``-Xptxas -v`` log:
+    ``{mangled entry name: {"registers", "spill_stores", "spill_loads"}}``."""
+    report: dict[str, dict[str, int]] = {}
+    entry = None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            entry = m.group(1)
+            report[entry] = dict(registers=0, spill_stores=0, spill_loads=0)
+        elif entry is None:
+            continue
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            report[entry].update(spill_stores=int(m.group(1)),
+                                 spill_loads=int(m.group(2)))
+        elif m := re.search(r"Used (\d+) registers", line):
+            report[entry]["registers"] = int(m.group(1))
+    return report
 
 
 def load() -> ctypes.CDLL:

@@ -12,10 +12,17 @@ Each op counts its kernel launches (:func:`launch_counts`), so a run can
 show that its main path went through the kernels.  The wrappers check
 dtype, device, shape and contiguity, allocate the outputs, and launch on
 PyTorch's current stream; a refused launch raises at once.
+
+The launch geometry of the two kernels that take it from outside (tile or
+group size, blocks, threads, shared memory, instantiation) is computed here
+in plain Python (:func:`signature_corr_geometry`,
+:func:`kmeans_coreset_geometry`), so the CPU tests can check it; the CUDA
+side refuses a geometry that does not fit its layout.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -23,7 +30,91 @@ from . import ref
 
 __all__ = ["signature_corr_op", "fake_quant_op", "kmeans_coreset_op",
            "importance_select_op", "launch_counts", "reset_launch_counts",
-           "kernel_library"]
+           "kernel_library", "Geometry", "signature_corr_geometry",
+           "kmeans_coreset_geometry", "SMS"]
+
+SMS = 132                      # streaming multiprocessors of an H100 SXM
+SMEM_DEFAULT = 48 * 1024       # dynamic shared memory without the opt-in
+SMEM_OPTIN = 232_448           # the most a block may opt in to (227 KB)
+SMEM_PER_SM = 233_472          # shared memory an SM gives its blocks
+# signature_corr.cu: threads per block at most
+CORR_MAX_THREADS = 1024
+# kmeans_coreset.cu: lanes per cloud, threads per block, and the
+# (K_MAX, D_MAX) instantiations with their __launch_bounds__ minimum of
+# resident blocks per SM
+KMEANS_GROUP, KMEANS_THREADS = 8, 64
+KMEANS_VARIANTS = ((16, 2, 12), (32, 4, 8))
+
+
+class Geometry(NamedTuple):
+    """One launch: ``tile`` nodes (or clouds) per block, ``group`` lanes
+    per cloud (0 where a thread takes an item), ``blocks``, ``threads`` per
+    block, ``smem`` bytes of dynamic shared memory, whether that needs the
+    opt-in above 48 KB, the instantiation ``variant`` passed to the
+    launch, and ``per_sm``, the blocks an SM holds at once at least."""
+    tile: int
+    group: int
+    blocks: int
+    threads: int
+    smem: int
+    optin: bool
+    variant: int
+    per_sm: int
+
+    @property
+    def waves(self) -> int:
+        """Waves of blocks on an H100's :data:`SMS` SMs."""
+        return -(-self.blocks // (SMS * self.per_sm))
+
+
+def _per_sm(threads: int, smem: int, min_blocks: int) -> int:
+    # 2048 threads and 32 blocks an SM; 1 KB of shared memory kept per block
+    return max(1, min(min_blocks, 2048 // threads, 32,
+                      SMEM_PER_SM // (smem + 1024)))
+
+
+def _corr_row_stride(t: int, c: int) -> int:
+    # signature_corr.cu row_stride: T rounded up to 4 steps, 4 mod 8 floats
+    s = -(-t // 4) * 4 * c
+    return s if s % 8 == 4 else s + 4
+
+
+def signature_corr_geometry(b: int, l: int, t: int, c: int) -> Geometry:
+    """Tiles of ``tile`` consecutive nodes, about one block per SM for the
+    fleet's nodes; the windows and the bank staged in padded rows, plus one
+    norm per column.  The instantiation ``variant`` is C."""
+    if not (1 <= t <= 64 and 1 <= c <= 4 and l >= 1
+            and (l * t * c + l * c) * 4 <= 48 * 1024):
+        raise ValueError(f"signature_corr: kernel takes T <= 64, C <= 4 and "
+                         f"a bank of at most 48 KB, got T={t}, C={c}, L={l}")
+    row = _corr_row_stride(t, c) + c        # floats per staged row + norms
+    most = (SMEM_OPTIN // 4 - l * row) // row
+    tile = max(1, min(-(-b // SMS), most))
+    threads = min(CORR_MAX_THREADS, -(-tile * l // 32) * 32)
+    smem = 4 * (tile + l) * row
+    return Geometry(tile=tile, group=0, blocks=-(-b // tile), threads=threads,
+                    smem=smem, optin=smem > SMEM_DEFAULT, variant=c,
+                    per_sm=_per_sm(threads, smem, 1))
+
+
+def kmeans_coreset_geometry(b: int, n: int, d: int, k: int) -> Geometry:
+    """Groups of :data:`KMEANS_GROUP` lanes, one cloud each, and the first
+    (K_MAX, D_MAX) instantiation that holds ``k`` and ``d``."""
+    if not (1 <= n <= 64 and 1 <= d <= 4 and 1 <= k <= 32):
+        raise ValueError(f"kmeans_coreset: kernel takes N <= 64, D <= 4, "
+                         f"k <= 32, got N={n}, D={d}, k={k}")
+    variant = next(i for i, (kmax, dmax, _) in enumerate(KMEANS_VARIANTS)
+                   if k <= kmax and d <= dmax)
+    kmax, dmax, min_blocks = KMEANS_VARIANTS[variant]
+    clouds = KMEANS_THREADS // KMEANS_GROUP
+    # points, centres, radii and counts per cloud; the lanes' partial sums
+    smem = 4 * (clouds * (n * d + kmax * dmax + 1 + 2 * kmax)
+                + k * (d + 1) * (KMEANS_THREADS + 4))
+    return Geometry(tile=clouds, group=KMEANS_GROUP, blocks=-(-b // clouds),
+                    threads=KMEANS_THREADS, smem=smem,
+                    optin=smem > SMEM_DEFAULT, variant=variant,
+                    per_sm=_per_sm(KMEANS_THREADS, smem, min_blocks))
+
 
 _LAUNCHES = {"signature_corr": 0, "fake_quant": 0, "kmeans_coreset": 0,
              "importance_select": 0}
@@ -96,12 +187,11 @@ def signature_corr_op(windows: torch.Tensor,
                          f"signatures {tuple(signatures.shape)} disagree")
     if not _on_cuda(op, windows, signatures):
         return ref.signature_corr_ref(windows, signatures)
-    if t > 64 or c > 4 or (l * t * c + l * c) * 4 > 48 * 1024:
-        raise ValueError(f"{op}: kernel takes T <= 64, C <= 4 and a bank of "
-                         f"at most 48 KB, got T={t}, C={c}, L={l}")
+    geo = signature_corr_geometry(b, l, t, c)
     out = torch.empty((b, l), dtype=torch.float32, device=windows.device)
     _launch(op, "signature_corr_launch", windows.device, _ptr(windows),
-            _ptr(signatures), _ptr(out), b, l, t, c)
+            _ptr(signatures), _ptr(out), b, l, t, c, geo.tile, geo.blocks,
+            geo.threads, geo.smem)
     return out
 
 
@@ -144,15 +234,14 @@ def kmeans_coreset_op(points: torch.Tensor, k: int, iters: int = 4):
     b, n, d = points.shape
     if not _on_cuda(op, points):
         return ref.kmeans_coreset_ref(points, k, iters)
-    if n > 64 or d > 4 or k > 32:
-        raise ValueError(f"{op}: kernel takes N <= 64, D <= 4, k <= 32, "
-                         f"got N={n}, D={d}, k={k}")
+    geo = kmeans_coreset_geometry(b, n, d, k)
     dev = points.device
     centers = torch.empty((b, k, d), dtype=torch.float32, device=dev)
     radii = torch.empty((b, k), dtype=torch.float32, device=dev)
     counts = torch.empty((b, k), dtype=torch.int32, device=dev)
     _launch(op, "kmeans_coreset_launch", dev, _ptr(points), _ptr(centers),
-            _ptr(radii), _ptr(counts), b, n, d, k, iters)
+            _ptr(radii), _ptr(counts), b, n, d, k, iters, geo.variant,
+            geo.blocks, geo.threads, geo.smem)
     return centers, radii, counts
 
 

@@ -234,6 +234,106 @@ def test_ops_import_and_cpu_path_need_no_nvcc():
     assert out.stdout.strip() == "6.0"
 
 
+# ---------------------------------------------------------------------------
+# Launch geometry (pure Python: the CUDA side refuses any other)
+# ---------------------------------------------------------------------------
+
+# the fleet's shapes: one slot's (N, T, C) windows against the 12-class bank,
+# the N * C channel clouds of 60 (t, x) points with k = 12; and the smaller
+# batches of node_block
+@pytest.mark.parametrize("nodes", [3000, 1000, 12, 1])
+def test_geometry_fleet_shapes_are_one_wave(nodes):
+    corr = ops.signature_corr_geometry(nodes, 12, 60, 3)
+    km = ops.kmeans_coreset_geometry(nodes * 3, 60, 2, 12)
+    for geo in (corr, km):
+        assert geo.waves == 1
+        assert geo.blocks <= ops.SMS * geo.per_sm
+    assert corr.variant == 3 and not corr.optin
+    assert km.variant == 0 and km.group == 8 and not km.optin
+    if nodes == 3000:
+        assert corr.blocks <= ops.SMS < corr.blocks + 2      # ~1 block an SM
+        assert km.blocks == 1125 and km.per_sm >= 9
+
+
+_CORR_SHAPES = [(b, l, t, c) for b in (1, 13, 3000, 250_000)
+                for t, c in ((1, 1), (37, 1), (60, 3), (61, 2), (64, 4))
+                for l in (1, 12, 47)
+                if (l * t * c + l * c) * 4 <= 48 * 1024]
+_KMEANS_SHAPES = [(b, n, d, k) for b in (1, 999, 9000)
+                  for n in (1, 13, 37, 60, 64) for d in (1, 2, 3, 4)
+                  for k in (1, 5, 12, 16, 17, 32)]
+
+
+@pytest.mark.parametrize("kernel", ["signature_corr", "kmeans_coreset"])
+def test_geometry_covers_the_accepted_range(kernel):
+    if kernel == "signature_corr":
+        cases = [(s, ops.signature_corr_geometry(*s)) for s in _CORR_SHAPES]
+    else:
+        cases = [(s, ops.kmeans_coreset_geometry(*s)) for s in _KMEANS_SHAPES]
+    for shape, geo in cases:
+        b = shape[0]
+        assert geo.smem <= 227 * 1024, (shape, geo)
+        assert geo.optin == (geo.smem > 48 * 1024), (shape, geo)
+        assert 32 <= geo.threads <= 1024 and geo.threads % 32 == 0
+        assert geo.blocks == -(-b // geo.tile)                # every item,
+        assert (geo.blocks - 1) * geo.tile < b                # no idle block
+        if kernel == "signature_corr":
+            l, t, c = shape[1:]
+            assert geo.variant == c and geo.group == 0
+            assert geo.threads >= min(geo.tile * l, 1024)
+        else:
+            n, d, k = shape[1:]
+            kmax, dmax, _ = ops.KMEANS_VARIANTS[geo.variant]
+            assert k <= kmax and d <= dmax
+            assert geo.variant == (0 if k <= 16 and d <= 2 else 1)
+            assert geo.tile * geo.group == geo.threads
+
+
+def test_geometry_opt_in_above_48_kb():
+    # the widest clouds' partial sums, and a bank of 47 x 64 x 4 with a big
+    # tile, need more than the default 48 KB
+    km = ops.kmeans_coreset_geometry(999, 64, 4, 32)
+    assert km.variant == 1 and km.optin and km.smem == 57_888
+    corr = ops.signature_corr_geometry(250_000, 47, 64, 4)
+    assert corr.optin and corr.smem <= 227 * 1024
+
+
+@pytest.mark.parametrize("shape", [(10, 12, 65, 3), (10, 12, 60, 5),
+                                   (10, 48, 64, 4), (10, 0, 60, 3),
+                                   (10, 12, 0, 3)])
+def test_signature_corr_geometry_rejects_out_of_range(shape):
+    with pytest.raises(ValueError, match="T <= 64, C <= 4"):
+        ops.signature_corr_geometry(*shape)
+
+
+@pytest.mark.parametrize("shape", [(10, 65, 2, 12), (10, 60, 5, 12),
+                                   (10, 60, 2, 33), (10, 60, 2, 0),
+                                   (10, 0, 2, 4)])
+def test_kmeans_geometry_rejects_out_of_range(shape):
+    with pytest.raises(ValueError, match="N <= 64, D <= 4, k <= 32"):
+        ops.kmeans_coreset_geometry(*shape)
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    log = """--- kmeans_coreset.cu
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6kernelILi16ELi2EEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelILi16ELi2EEvPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 78 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z6kernelILi32ELi4EEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelILi32ELi4EEvPKf
+    8 bytes stack frame, 24 bytes spill stores, 32 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+    assert build.ptxas_report(log) == {
+        "_Z6kernelILi16ELi2EEvPKf": dict(registers=78, spill_stores=0,
+                                         spill_loads=0),
+        "_Z6kernelILi32ELi4EEvPKf": dict(registers=64, spill_stores=24,
+                                         spill_loads=32)}
+    assert build.ptxas_report("") == {}
+
+
 def test_build_names_library_by_source_hash():
     path = build.library_path()
     assert path.parent == REPO / "build" / "repro_torch"
@@ -243,5 +343,10 @@ def test_build_names_library_by_source_hash():
         "importance_select.cu"}
     assert set(build._ENTRY_POINTS) == {
         p.stem + "_launch" for p in build.CSRC.glob("*.cu")}
+    # the two kernels that take their geometry from ops.py: pointers, the
+    # shape, then (tile or variant, blocks, threads, shared-memory bytes),
+    # then the stream
+    assert len(build._ENTRY_POINTS["signature_corr_launch"]) == 3 + 4 + 4 + 1
+    assert len(build._ENTRY_POINTS["kmeans_coreset_launch"]) == 4 + 5 + 4 + 1
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "--use_fast_math" not in build.NVCC_FLAGS
