@@ -14,12 +14,14 @@ Phases (any failure exits non-zero and prints no result):
    ``build/repro_torch/``, prints the seconds and every kernel's ptxas
    registers and spills, and fails on a spill;
 3. kernels: each kernel against its plain version on the card at the main
-   path's shapes, and ``signature_corr`` and ``kmeans_coreset`` also at
-   off-fleet shapes that run every instantiation and ragged edge; two
-   launches of each kernel on the same input must be bit-identical.  With
-   each kernel's time, the plain version's time, the time of one PyTorch
-   call computing the same function where there is one, and the least time
-   the card could take (its bound);
+   path's shapes, and every kernel also at off-fleet shapes that run every
+   instantiation and ragged edge.  ``fake_quant`` (amax and scale included)
+   and ``importance_select`` must be bit-equal to their plain versions in
+   every case; ``fake_quant`` must launch exactly one kernel per call, in
+   every mode.  Two launches of each kernel on the same input must be
+   bit-identical.  With each kernel's time, the plain version's time, the
+   time of one PyTorch call computing the same function where there is one,
+   and the least time the card could take (its bound);
 4. fleet: ``repro_torch.seeker_fleet_simulate`` at full HAR width, N=3000
    nodes, S=8 slots, per-node streams, counting each kernel's launches; the
    same run on the CPU through the plain versions, with the same noise,
@@ -137,6 +139,9 @@ def _profile(torch, run, slots: int, secs: float, name: str) -> dict:
         device_busy_ms_per_slot=busy_ms,
         device_idle_share=1.0 - busy_ms / (secs / slots * 1e3),
         kernel_launches_per_slot=sum(e.count for e in on_device) / slots,
+        # the plain scale chain's ops (the max-pool also takes an amax)
+        abs_amax_calls_per_slot={e.key: e.count / slots for e in rows
+                                 if e.key in ("aten::abs", "aten::amax")},
         top_kernels=[dict(name=e.key[:90], count_per_slot=e.count / slots,
                           ms_per_slot=_self_device_us(e) / 1e3 / slots)
                      for e in on_device[:15]])
@@ -146,7 +151,8 @@ def _profile(torch, run, slots: int, secs: float, name: str) -> dict:
         + rows.table(sort_by="self_cpu_time_total", row_limit=40))
     print(f"{name} profile: device busy {busy_ms:.3f} ms/slot, "
           f"{summary['kernel_launches_per_slot']:.0f} kernel launches"
-          f"/slot, idle share {summary['device_idle_share']:.3f}")
+          f"/slot, idle share {summary['device_idle_share']:.3f}; "
+          f"aten::abs/amax calls per slot {summary['abs_amax_calls_per_slot']}")
     for row in summary["top_kernels"][:8]:
         print(f"  {row['ms_per_slot']:.4f} ms/slot x{row['count_per_slot']:g} "
               f"{row['name']}")
@@ -187,11 +193,90 @@ def phase_build() -> dict:
 
 
 def _same_twice(torch, fn) -> None:
-    """Two launches on the same input give bit-identical outputs."""
+    """Two launches on the same input give bit-identical outputs (NaNs
+    and signed zeros included)."""
     first, second = fn(), fn()
     if isinstance(first, torch.Tensor):
         first, second = (first,), (second,)
-    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    bits = [(a.view(torch.int32), b.view(torch.int32))
+            if a.dtype == torch.float32 else (a, b)
+            for a, b in zip(first, second)]
+    assert all(torch.equal(a, b) for a, b in bits)
+
+
+def _assert_same_bits(torch, got, want, what: str) -> None:
+    """NaN where the plain version has NaN; every other element bit for bit
+    (``torch.equal``, and signed zeros too)."""
+    nan = torch.isnan(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert torch.equal(torch.isnan(got), nan), what
+    if not bool(nan.any()):
+        assert torch.equal(got, want), what
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32)), what
+
+
+def _device_kernels(torch, fn) -> dict:
+    """{kernel name: launches} of one call of ``fn``, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def _fake_quant_plain(ref, x, bits, per_channel=False, per_sample=False):
+    """The whole plain function (the scale chain, then the quantizer), and
+    each element's scale."""
+    x2d = x.reshape(-1, x.shape[-1]) if x.ndim > 1 else x.reshape(1, -1)
+    rows = x2d.shape[0] // x.shape[0] if per_sample else x2d.shape[0]
+    scale = ref.fake_quant_scale(x2d, bits, per_channel, rows)
+    out = ref.fake_quant_ref(x2d, scale, bits, per_channel, rows)
+    per_element = (scale[None, :] if per_channel
+                   else scale.repeat_interleave(rows)[:, None])
+    return out.reshape(x.shape), per_element.expand(x2d.shape).reshape(x.shape)
+
+
+def _fake_quant_cases(torch, g, dev, acts, weight):
+    """(name, tensor, kwargs) for every mode and instantiation of the
+    quantizer: the fleet's per-node activations, per-node groups that are
+    not whole float4s, unaligned or longer than a warp holds, groups of
+    zeros and of inf and NaN, per-tensor weights and tensors, per-channel."""
+    def rnd(shape, scale=3.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    unaligned = rnd((3000 * 180 + 1,))[1:].view(3000, 60, 3)
+    zero = rnd((3000, 60, 3))
+    zero[5] = 0.0
+    zero[6] = -0.0
+    inf = rnd((3000, 60, 3))
+    inf[7, 3, 1] = float("inf")
+    inf[8, 0, 2] = float("-inf")
+    inf[9, 0, 0] = float("nan")
+    node = dict(per_sample=True)
+    return [
+        ("per node (3000, 60, 3)", acts[0], node),
+        ("per node (3000, 30, 32)", acts[1], node),
+        ("per node (3000, 15, 64)", acts[2], node),
+        ("per node (7, 13, 3)", rnd((7, 13, 3)), node),
+        ("per node (3000, 60, 3) unaligned", unaligned, node),
+        ("per node (64, 40, 64)", rnd((64, 40, 64)), node),
+        ("per node (16, 301, 3)", rnd((16, 301, 3)), node),
+        ("per node, groups of zeros", zero, node),
+        ("per node, groups with inf and NaN", inf, node),
+        ("per tensor (960, 128) weights", weight, {}),
+        ("per tensor (5, 32, 64) weights", rnd((5, 32, 64), 0.05), {}),
+        ("per tensor (7, 13, 3)", rnd((7, 13, 3)), {}),
+        ("per tensor (2048, 4096)", rnd((2048, 4096)), {}),
+        ("per tensor zeros", torch.zeros((64, 64), device=dev), {}),
+        ("per channel (960, 128) weights", weight, dict(per_channel=True)),
+        ("per channel (2048, 4096)", rnd((2048, 4096)), dict(per_channel=True)),
+        ("per channel (33, 70)", rnd((33, 70)), dict(per_channel=True)),
+    ]
 
 
 def _check_kmeans(torch, ops, ref, pts, k, iters) -> float:
@@ -263,56 +348,79 @@ def phase_kernels(torch, dev) -> dict:
     table["signature_corr"] = dict(max_abs_err=corr_err, bound_ms=bound,
                                    bound_by=by, **times)
 
-    # --- fake_quant: one slot's three per-node activations, and weights ----
+    # --- fake_quant: one slot's three per-node activations, and weights;
+    # the whole function (amax, scale, quantize) bit for bit in every mode --
     acts = [torch.randn(shape, generator=g, device=dev) * 3.0
             for shape in ((b, 60, 3), (b, 30, 32), (b, 15, 64))]
     weight = torch.randn((960, 128), generator=g, device=dev) * 0.05
-    err = 0.0
-    for bits in (16, 12):
-        cases = [(x, True) for x in acts] + [(weight, False)]
-        for x, per_sample in cases:
-            got = ops.fake_quant_op(x, bits, per_sample=per_sample)
-            x2d = x.reshape(-1, x.shape[-1])
-            rows = x2d.shape[0] // x.shape[0] if per_sample else x2d.shape[0]
-            scale = ref.fake_quant_scale(x2d, bits, False, rows)
-            want = ref.fake_quant_ref(x2d, scale, bits, False, rows)
-            torch.testing.assert_close(got.reshape(x2d.shape), want,
-                                       rtol=1e-5, atol=1e-6)
-            half = scale.repeat_interleave(rows)[:, None] / 2
-            assert bool(((got.reshape(x2d.shape) - x2d).abs()
-                         <= half + 1e-6).all())
-            err = max(err, float((got.reshape(x2d.shape) - want).abs().max()))
-            _same_twice(torch, lambda: ops.fake_quant_op(
-                x, bits, per_sample=per_sample))
+    err, variants = 0.0, {}
+    for name, x, kw in _fake_quant_cases(torch, g, dev, acts, weight):
+        for bits in (16, 12, 8):
+            got = ops.fake_quant_op(x, bits, **kw)
+            want, scale = _fake_quant_plain(ref, x, bits, **kw)
+            _assert_same_bits(torch, got, want, f"fake_quant {name} {bits}")
+            ok = ~torch.isnan(want)
+            err = max(err, float((got[ok] - want[ok]).abs().max()))
+            if (x is weight or any(x is a for a in acts)) and bits != 8:
+                # within half a level of the input
+                assert bool(((got - x).abs() <= scale / 2 + 1e-6).all())
+        _same_twice(torch, lambda: ops.fake_quant_op(x, 16, **kw))
+        cols = x.shape[-1] if x.ndim > 1 else x.numel()
+        geo = ops.fake_quant_geometry(
+            x.numel(), cols, x.shape[0] if kw.get("per_sample") else 1,
+            kw.get("per_channel", False), x.data_ptr() % 16 == 0)
+        variants.setdefault(geo.variant, (name, x, kw))
+        print(f"fake_quant {name} {kw}: bit-equal at 16, 12 and 8 bits; "
+              f"{geo}")
+    assert sorted(variants) == list(range(5)), sorted(variants)
+    # one launch per call and no PyTorch op, in every instantiation
+    for name, x, kw in variants.values():
+        seen = _device_kernels(torch, lambda: ops.fake_quant_op(x, 16, **kw))
+        print(f"fake_quant {name}: kernels of one call {seen}")
+        assert len(seen) == 1 and "fake_quant" in next(iter(seen)), seen
+        assert list(seen.values()) == [1], seen
 
-    # one slot's three launches; the kernel's device time leaves out the
-    # wrapper's amax reduction, and the plain version and the library call
-    # take the same precomputed per-node scales
-    slot = []
-    for x in acts:
-        x2d = x.reshape(-1, x.shape[-1])
-        rows = x2d.shape[0] // b
-        slot.append((x, x2d, rows, ref.fake_quant_scale(x2d, 16, False, rows)))
+    # one slot's three calls, the whole function in each column: the
+    # kernel; the plain scale chain and quantizer; the scale chain and
+    # fake_quantize_per_channel_affine (which multiplies by 1 / scale: not
+    # bit-equal, a yardstick); and the scale chain alone, which the
+    # earlier design ran before its kernel
     def quant_slot():
         for x in acts:
             ops.fake_quant_op(x, 16, per_sample=True)
 
     def quant_slot_plain():
-        for _, x2d, rows, scale in slot:
-            ref.fake_quant_ref(x2d, scale, 16, False, rows)
+        for x in acts:
+            x2d = x.reshape(-1, x.shape[-1])
+            rows = x2d.shape[0] // b
+            ref.fake_quant_ref(x2d, ref.fake_quant_scale(x2d, 16, False, rows),
+                               16, False, rows)
 
     zero_points = torch.zeros(b, dtype=torch.int32, device=dev)
 
+    def scale_chain():
+        return [ref.fake_quant_scale(x.reshape(-1, x.shape[-1]), 16, False,
+                                     x.numel() // (b * x.shape[-1]))
+                for x in acts]
+
     def quant_slot_library():
-        for x, _, _, scale in slot:
+        for x, scale in zip(acts, scale_chain()):
             torch.fake_quantize_per_channel_affine(
                 x.reshape(b, -1), scale, zero_points, 0, -32767, 32767)
 
     n_act = sum(x.numel() for x in acts)
-    bound, by = _bound_ms(2 * 4 * n_act, 4 * n_act)
+    # operations per element: abs, max, divide, round, two clamps, multiply
+    bound, by = _bound_ms(2 * 4 * n_act, 7 * n_act)
     times, extra["fake_quant"] = _timings(
-        torch, quant_slot, "fake_quant_kernel", quant_slot_plain,
-        quant_slot_library)
+        torch, quant_slot, "fake_quant", quant_slot_plain, quant_slot_library)
+    chain_dev = _device_ms(torch, scale_chain)
+    extra["fake_quant"]["scale_chain_ms"] = (
+        chain_dev if chain_dev is not None else _time_ms(torch, scale_chain))
+    extra["fake_quant"]["scale_chain_launches"] = sum(
+        _device_kernels(torch, scale_chain).values())
+    print(f"fake_quant: the plain scale chain alone, one slot: "
+          f"{extra['fake_quant']['scale_chain_ms']} ms device time, "
+          f"{extra['fake_quant']['scale_chain_launches']} kernel launches")
     table["fake_quant"] = dict(max_abs_err=err, bound_ms=bound, bound_by=by,
                                **times)
 
@@ -342,23 +450,40 @@ def phase_kernels(torch, dev) -> dict:
     table["kmeans_coreset"] = dict(max_abs_err=err, bound_ms=bound,
                                    bound_by=by, **times)
 
-    # --- importance_select: the HAR windows, m=20, and one batch at the
-    # JAX tests' (13, 64, 5) with m=8 ----------------------------------
+    # --- importance_select: indices, values and weights bit for bit, at
+    # the HAR windows and off them: the JAX tests' (13, 64, 5), T=37 with
+    # m = 1 and m = T, flat windows with spread=0 (every weight 0), and
+    # windows of three levels (many tied weights) ------------------------
     m = IMPORTANCE_M
     small = torch.randn((13, 64, 5), generator=g, device=dev)
-    err = 0.0
-    for x, mm in ((windows, m), (small, 8)):
-        ki, kv, kw = ops.importance_select_op(x, mm)
-        pi, pv, pw = ref.importance_select_ref(x, mm)
-        n_diff = int((ki != pi).any(dim=-1).sum())
-        print(f"importance_select {tuple(x.shape)} m={mm}: indices differ on "
-              f"{n_diff} of {x.shape[0]} windows")
-        assert n_diff == 0
-        torch.testing.assert_close(kv, pv, rtol=1e-5, atol=1e-6)
-        torch.testing.assert_close(kw, pw, rtol=1e-4, atol=1e-5)
-        err = max(err, float((kv - pv).abs().max()),
-                  float((kw - pw).abs().max()))
-        _same_twice(torch, lambda: ops.importance_select_op(x, mm))
+    odd = torch.randn((50, 37, 3), generator=g, device=dev)
+    levels = torch.randint(0, 3, (300, 60, 3), generator=g,
+                           device=dev).float()
+    err, variants = 0.0, set()
+    for name, x, mm, kw in (
+            ("fleet", windows, m, {}), ("fleet m=1", windows, 1, {}),
+            ("(13, 64, 5)", small, 8, {}), ("T=37", odd, 5, {}),
+            ("T=37 m=1", odd, 1, {}), ("T=37 m=T", odd, 37, {}),
+            ("flat", torch.ones((64, 60, 3), device=dev), m,
+             dict(spread=0.0)),
+            ("flat (8, 64, 5)", torch.ones((8, 64, 5), device=dev), 8,
+             dict(spread=0.0)),
+            ("three levels", levels, m, {}),
+            ("three levels spread=0", levels, m, dict(spread=0.0))):
+        got = ops.importance_select_op(x, mm, **kw)
+        want = ref.importance_select_ref(x, mm, **kw)
+        for part, k_out, p_out in zip(("indices", "values", "weights"), got,
+                                      want):
+            assert torch.equal(k_out, p_out), (name, part)
+        err = max(err, float((got[1] - want[1]).abs().max()),
+                  float((got[2] - want[2]).abs().max()))
+        _same_twice(torch, lambda: ops.importance_select_op(x, mm, **kw))
+        geo = ops.importance_select_geometry(*x.shape, mm, 8)
+        variants.add(geo.variant)
+        print(f"importance_select {name} {tuple(x.shape)} m={mm} {kw}: "
+              f"indices, values and weights equal; {geo}, "
+              f"{geo.waves} wave(s)")
+    assert variants == {0, 1}, variants
     # bytes: windows in, indices, values and weights out; operations per
     # sample: the box sum, divide, subtract and abs per channel, the channel
     # and time sums, the blend, m argmax comparisons; 3 per output weight
@@ -367,7 +492,7 @@ def phase_kernels(torch, dev) -> dict:
     bound, by = _bound_ms(nbytes, flops)
     times, extra["importance_select"] = _timings(
         torch, lambda: ops.importance_select_op(windows, m),
-        "importance_select_kernel",
+        "importance_select",
         lambda: ref.importance_select_ref(windows, m))
     # not the same function (no scores, no sort, no gathers): a yardstick
     # for the selection alone

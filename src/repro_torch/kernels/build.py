@@ -39,13 +39,18 @@ _ENTRY_POINTS = {
     # shared-memory bytes
     "signature_corr_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               _P),
-    "fake_quant_launch": (_P, _P, _P, _LL, _I, _LL, _I, _F, _P),
+    # x, out, scratch, numel, cols, group floats, rq, qmax, then the
+    # geometry: variant, blocks, threads, shared-memory bytes
+    "fake_quant_launch": (_P, _P, _P, _LL, _I, _LL, _F, _F, _I, _I, _I, _I,
+                          _P),
     # pts, centres, radii, counts, B, N, D, K, iters, then the geometry:
     # variant, blocks, threads, shared-memory bytes
     "kmeans_coreset_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _P),
+    # windows, idx, vals, weights, B, T, C, m, width, keep, floor, then the
+    # geometry: variant, tile, blocks, threads, shared-memory bytes
     "importance_select_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                                 _P),
+                                 _I, _I, _I, _I, _I, _P),
 }
 
 

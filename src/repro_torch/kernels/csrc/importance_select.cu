@@ -12,142 +12,236 @@
 // What bounds it on the card: bytes, barely.  At the HAR shape (B = 3000,
 // T = 60, C = 3, m = 20) the call reads 2.2 MB and writes 1.2 MB, about
 // 1 us at 3.35 TB/s; the arithmetic is a few hundred operations per
-// sample.  What it really costs is latency: m dependent rounds of a warp
-// argmax per window.
+// sample.  What it costs is instruction issue and latency: about 23
+// windows (warps) an SM, each a few hundred instructions of box filter and
+// rank counting, behind a load, a chain of T dependent adds and IEEE
+// divisions.  The first design spent its time on m = 20 dependent rounds of
+// a 5-step butterfly argmax (two shuffles and a select a step), with the
+// box filter and the channel loop on runtime bounds and an IEEE division
+// per (t, c).
 //
-// Design: one warp per window, 8 windows per block.  The window is staged
-// in shared memory, since each moving average reads its neighbours.  Each
-// lane owns time steps `lane` and `lane + 32`.  The arithmetic repeats the
-// plain version's order, so the weights are bit-equal to it and the picks
-// equal: the shifted values added j = 0..width-1, the channel sum
-// c = 0..C-1, and the normalising sum t = 0..T-1 by one lane from shared
-// memory; multiplies and adds are kept apart (no fused multiply-add).  Each
-// of the m rounds is a butterfly argmax over the warp, larger weight first,
-// then lower index; a picked sample is excluded by its index (not by
-// zeroing its weight, which the Pallas body does and which repeats an index
-// where all weights are 0).  Lane r keeps pick r; its rank among the m picks
-// (a count of smaller indices) is its output slot.
+// Design: one warp per window, `tile` windows (warps) per block, chosen by
+// the wrapper (repro_torch.kernels.ops.importance_select_geometry) so that
+// the HAR fleet's 3000 windows make about one block per SM.  Each warp
+// stages its window in its own slice of shared memory (16-byte loads where
+// the window is 16-byte aligned); lane l owns time steps l and l + 32.
+//   * Scores, in the plain version's order, so the weights are bit-equal to
+//     it: the shifted values added j = 0..width-1, the channel sum
+//     c = 0..C-1, the normalising sum t = 0..T-1, no fused multiply-add.
+//     The kernel is instantiated for the HAR case (C, width) = (3, 8), with
+//     both loops unrolled, and once for any (C, width).  A power-of-two
+//     width divides by multiplying with its reciprocal, which is exact;
+//     other widths keep the IEEE division.  The sum over t is one chain of
+//     T dependent adds; every lane takes it from broadcast float4 reads, so
+//     no lane waits on a shuffle of the result.
+//   * Selection by rank, with no dependent rounds: the weights go to shared
+//     memory, and each lane counts, for each of its steps t,
+//       rank(t) = #{u : w[u] > w[t] or (w[u] == w[t] and u < t)}
+//     from broadcast float4 reads of all T weights (independent loads, no
+//     shuffles).  The first pass counts only #{u : w[u] > w[t]}, each
+//     compare one subtract and one shift-add of its sign bit into one of
+//     four accumulators (the difference of two finite floats is 0 only
+//     when they are equal, and its sign is exact).  Those counts are a
+//     permutation of 0..T-1 exactly when no two weights tie, that is when
+//     their warp sum is T(T-1)/2; otherwise (a flat window, repeated
+//     values) a second pass adds #{u < t : w[u] == w[t]}.
+//     (weight descending, index ascending) is a strict total order, so the
+//     steps of rank < m are exactly the m that the stable descending sort
+//     of the plain version (and a sequential argmax with ties to the lower
+//     index) picks; m distinct indices even where all weights tie.  A
+//     pick's output slot is the number of picks at lower steps: a ballot
+//     per step set and a population count below the lane.
+// Every lane of a warp reaches its __syncwarp()s and ballots; there is no
+// block-wide barrier, so a warp without a window leaves at once.
+#include <cstdint>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace {
 
-constexpr int kWarps = 8;     // windows per block
 constexpr int kSteps = 2;     // time steps per lane: T <= 64
-constexpr int kMaxT = 32 * kSteps;
-constexpr int kMaxC = 8;
+constexpr int kMaxWarps = 32;
 
-__global__ void importance_select_kernel(const float* __restrict__ windows,
-                                         int* __restrict__ idx_out,
-                                         float* __restrict__ vals_out,
-                                         float* __restrict__ weights_out,
-                                         int B, int T, int C, int m, int width,
-                                         float keep, float floor_w) {
-  __shared__ float win_all[kWarps][kMaxT * kMaxC];
-  __shared__ float w_all[kWarps][kMaxT];
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+
+// Floats of shared memory per warp: the window, then the T weights, each
+// rounded up to whole float4s.
+__host__ __device__ constexpr int warp_floats(int T, int C) {
+  return round4(T * C) + round4(T);
+}
+
+// CT, WT: the channel count and box width, or 0 where they are runtime.
+template <int CT, int WT>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+importance_select_kernel(const float* __restrict__ windows,
+                         int* __restrict__ idx_out,
+                         float* __restrict__ vals_out,
+                         float* __restrict__ weights_out, int B, int T,
+                         int c_rt, int m, int width_rt, float keep,
+                         float floor_w) {
+  extern __shared__ float4 smem4[];
+  const int C = CT ? CT : c_rt;
+  const int width = WT ? WT : width_rt;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + warp;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;  // no block-wide barrier below
-  float* win = win_all[warp];
-  float* wsh = w_all[warp];
-  const float* x = windows + static_cast<size_t>(b) * T * C;
-  for (int i = lane; i < T * C; i += 32) win[i] = x[i];
+  const int tc = T * C;
+  float* win = reinterpret_cast<float*>(smem4) + warp * warp_floats(T, C);
+  float* wsh = win + round4(tc);
+  const float* x = windows + static_cast<size_t>(b) * tc;
+  if (tc % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    float4* w4 = reinterpret_cast<float4*>(win);
+    for (int i = lane; i < tc / 4; i += 32) w4[i] = x4[i];
+  } else {
+    for (int i = lane; i < tc; i += 32) win[i] = x[i];
+  }
+  // the padding of the T sums up to a whole float4: +0 adds nothing
+  if (lane < round4(T) - T) wsh[T + lane] = 0.f;
   __syncwarp();
 
   // deviation from the moving average, summed over channels
   const int pad_l = width / 2;
+  const bool pow2 = (width & (width - 1)) == 0;
+  const float inv_width = 1.f / static_cast<float>(width);  // exact if pow2
   float detr[kSteps];
 #pragma unroll
   for (int s = 0; s < kSteps; ++s) {
     const int t = lane + 32 * s;
     detr[s] = 0.f;
     if (t >= T) continue;
-    for (int c = 0; c < C; ++c) {
+#pragma unroll
+    for (int c = 0; c < (CT ? CT : C); ++c) {
       float acc = 0.f;
-      for (int j = 0; j < width; ++j) {
+#pragma unroll
+      for (int j = 0; j < (WT ? WT : width); ++j) {
         const int tj = min(max(t + j - pad_l, 0), T - 1);
         acc = __fadd_rn(acc, win[tj * C + c]);
       }
-      const float dev =
-          fabsf(__fsub_rn(win[t * C + c], __fdiv_rn(acc, float(width))));
+      const float mean = pow2 ? __fmul_rn(acc, inv_width)
+                              : __fdiv_rn(acc, static_cast<float>(width));
+      const float dev = fabsf(__fsub_rn(win[t * C + c], mean));
       detr[s] = c == 0 ? dev : __fadd_rn(detr[s], dev);
     }
     wsh[t] = detr[s];
   }
   __syncwarp();
+  // the sum over t in order, by every lane from broadcast float4 reads
+  const float4* w4 = reinterpret_cast<const float4*>(wsh);
+  const int n4 = round4(T) / 4;
   float total = 0.f;
-  if (lane == 0)
-    for (int t = 0; t < T; ++t) total = __fadd_rn(total, wsh[t]);
-  total = fmaxf(__shfl_sync(0xffffffffu, total, 0), 1e-9f);
-  __syncwarp();  // lane 0 has read every detr before they become weights
+#pragma unroll 4
+  for (int k = 0; k < n4; ++k) {
+    const float4 q = w4[k];
+    total = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(total, q.x), q.y), q.z),
+                      q.w);
+  }
+  total = fmaxf(total, 1e-9f);
 
+  // + 0 turns a -0 into the +0 it ties with in the plain version's sort
   float w[kSteps];
-  bool picked[kSteps];
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s)
+    w[s] = __fadd_rn(
+        __fadd_rn(__fmul_rn(keep, __fdiv_rn(detr[s], total)), floor_w), 0.f);
+  __syncwarp();  // every lane has read every detr before they become weights
+  // the weights, padded with -inf: never above a weight, never tied
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s)
+    if (lane + 32 * s < round4(T))
+      wsh[lane + 32 * s] = lane + 32 * s < T ? w[s] : -CUDART_INF_F;
+  __syncwarp();
+
+  // rank of each own step in (weight descending, index ascending): the
+  // larger weights (the padding, -inf, is never larger) ...
+  unsigned part[kSteps][4] = {};
+#pragma unroll 4
+  for (int k = 0; k < n4; ++k) {
+    const float4 q = w4[k];
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      part[s][0] += __float_as_uint(__fsub_rn(w[s], q.x)) >> 31;
+      part[s][1] += __float_as_uint(__fsub_rn(w[s], q.y)) >> 31;
+      part[s][2] += __float_as_uint(__fsub_rn(w[s], q.z)) >> 31;
+      part[s][3] += __float_as_uint(__fsub_rn(w[s], q.w)) >> 31;
+    }
+  }
+  int rank[kSteps];
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s)
+    rank[s] = part[s][0] + part[s][1] + part[s][2] + part[s][3];
+  // ... then, where two weights tie, the equal ones before the step
+  const int sum = __reduce_add_sync(
+      0xffffffffu, (lane < T ? rank[0] : 0) + (lane + 32 < T ? rank[1] : 0));
+  if (sum != T * (T - 1) / 2) {
+    for (int u = 0; u < T; ++u) {
+      const float wu = wsh[u];
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s)
+        rank[s] += wu == w[s] && u < lane + 32 * s;
+    }
+  }
+  bool pick[kSteps];
+  unsigned ballot[kSteps];
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    pick[s] = lane + 32 * s < T && rank[s] < m;
+    ballot[s] = __ballot_sync(0xffffffffu, pick[s]);
+  }
+  const unsigned below = (1u << lane) - 1u;
+  int slot = 0;
 #pragma unroll
   for (int s = 0; s < kSteps; ++s) {
     const int t = lane + 32 * s;
-    picked[s] = t >= T;
-    w[s] = __fadd_rn(__fmul_rn(keep, __fdiv_rn(detr[s], total)), floor_w);
-    if (t < T) wsh[t] = w[s];
-  }
-
-  // m rounds of a warp argmax; lane r keeps the r-th pick
-  int mine = 0;
-  for (int r = 0; r < m; ++r) {
-    float bv = 0.f;
-    int bi = -1;
-#pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
-      if (!picked[s] && (bi < 0 || w[s] > bv)) {  // lane's own steps ascend
-        bv = w[s];
-        bi = lane + 32 * s;
-      }
+    const int at = slot + __popc(ballot[s] & below);
+    if (pick[s] && at < m) {
+      const size_t row = static_cast<size_t>(b) * m + at;
+      idx_out[row] = t;
+      for (int c = 0; c < C; ++c) vals_out[row * C + c] = win[t * C + c];
+      weights_out[row] =
+          __fdiv_rn(1.f, fmaxf(__fmul_rn(static_cast<float>(m), w[s]), 1e-9f));
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-      const bool better = oi >= 0 && (bi < 0 || ov > bv ||
-                                      (ov == bv && oi < bi));
-      if (better) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    if (lane == r) mine = bi;
-#pragma unroll
-    for (int s = 0; s < kSteps; ++s) picked[s] |= bi == lane + 32 * s;
-  }
-  __syncwarp();
-
-  // rank-by-count sort of the m distinct picks, then the gathers
-  int rank = 0;
-  for (int q = 0; q < m; ++q) {
-    const int other = __shfl_sync(0xffffffffu, mine, q);
-    rank += other < mine;
-  }
-  if (lane < m) {
-    const size_t row = static_cast<size_t>(b) * m + rank;
-    idx_out[row] = mine;
-    for (int c = 0; c < C; ++c) vals_out[row * C + c] = win[mine * C + c];
-    weights_out[row] =
-        __fdiv_rn(1.f, fmaxf(__fmul_rn(float(m), wsh[mine]), 1e-9f));
+    slot += __popc(ballot[s]);
   }
 }
 
-}  // namespace
-
-extern "C" int importance_select_launch(const void* windows, void* idx,
-                                        void* vals, void* weights, int B,
-                                        int T, int C, int m, int width,
-                                        float keep, float floor_w,
-                                        void* stream) {
-  if (B <= 0) return 0;
-  const int blocks = (B + kWarps - 1) / kWarps;
-  importance_select_kernel<<<blocks, kWarps * 32, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+template <int CT, int WT>
+int launch(const void* windows, void* idx, void* vals, void* weights, int B,
+           int T, int C, int m, int width, float keep, float floor_w,
+           int blocks, int threads, int smem, cudaStream_t stream) {
+  importance_select_kernel<CT, WT><<<blocks, threads, smem, stream>>>(
       static_cast<const float*>(windows), static_cast<int*>(idx),
       static_cast<float*>(vals), static_cast<float*>(weights), B, T, C, m,
       width, keep, floor_w);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The launch geometry comes from the wrapper
+// (repro_torch.kernels.ops.importance_select_geometry): `variant` 0 is the
+// (C, width) = (3, 8) instantiation, 1 the runtime one; `tile` windows (one
+// warp each) per block.  A geometry that does not fit is refused with
+// cudaErrorInvalidValue.
+extern "C" int importance_select_launch(const void* windows, void* idx,
+                                        void* vals, void* weights, int B,
+                                        int T, int C, int m, int width,
+                                        float keep, float floor_w,
+                                        int variant, int tile, int blocks,
+                                        int threads, int smem, void* stream) {
+  if (B <= 0) return 0;
+  if (T < 1 || T > 32 * kSteps || C < 1 || C > 8 || m < 1 || m > T ||
+      width < 1 || tile < 1 || tile > kMaxWarps || threads != 32 * tile ||
+      blocks != (B + tile - 1) / tile ||
+      smem != 4 * tile * warp_floats(T, C) || smem > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 0 && C == 3 && width == 8)
+    return launch<3, 8>(windows, idx, vals, weights, B, T, C, m, width, keep,
+                        floor_w, blocks, threads, smem, s);
+  if (variant == 1)
+    return launch<0, 0>(windows, idx, vals, weights, B, T, C, m, width, keep,
+                        floor_w, blocks, threads, smem, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,17 +13,19 @@ show that its main path went through the kernels.  The wrappers check
 dtype, device, shape and contiguity, allocate the outputs, and launch on
 PyTorch's current stream; a refused launch raises at once.
 
-The launch geometry of the two kernels that take it from outside (tile or
-group size, blocks, threads, shared memory, instantiation) is computed here
-in plain Python (:func:`signature_corr_geometry`,
-:func:`kmeans_coreset_geometry`), so the CPU tests can check it; the CUDA
-side refuses a geometry that does not fit its layout.
+The launch geometry of every kernel (tile or group size, blocks, threads,
+shared memory, instantiation) is computed here in plain Python
+(:func:`signature_corr_geometry`, :func:`fake_quant_geometry`,
+:func:`kmeans_coreset_geometry`, :func:`importance_select_geometry`), so
+the CPU tests can check it; the CUDA side refuses a geometry that does not
+fit its layout.
 """
 from __future__ import annotations
 
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import ref
@@ -31,7 +33,8 @@ from . import ref
 __all__ = ["signature_corr_op", "fake_quant_op", "kmeans_coreset_op",
            "importance_select_op", "launch_counts", "reset_launch_counts",
            "kernel_library", "Geometry", "signature_corr_geometry",
-           "kmeans_coreset_geometry", "SMS"]
+           "fake_quant_geometry", "fake_quant_constants",
+           "kmeans_coreset_geometry", "importance_select_geometry", "SMS"]
 
 SMS = 132                      # streaming multiprocessors of an H100 SXM
 SMEM_DEFAULT = 48 * 1024       # dynamic shared memory without the opt-in
@@ -44,6 +47,13 @@ CORR_MAX_THREADS = 1024
 # resident blocks per SM
 KMEANS_GROUP, KMEANS_THREADS = 8, 64
 KMEANS_VARIANTS = ((16, 2, 12), (32, 4, 8))
+# fake_quant.cu: threads per block and the __launch_bounds__ minimum of
+# resident blocks per SM (every kernel), items a thread holds in registers,
+# elements per thread of a per-channel block, and the most columns it takes
+FQ_THREADS, FQ_PER_SM, FQ_HELD = 256, 4, 8
+FQ_CHANNEL_ITEMS, FQ_MAX_COLS = 8, 4096
+# importance_select.cu: windows (warps) per block at most
+IMP_MAX_WARPS = 32
 
 
 class Geometry(NamedTuple):
@@ -114,6 +124,79 @@ def kmeans_coreset_geometry(b: int, n: int, d: int, k: int) -> Geometry:
                     threads=KMEANS_THREADS, smem=smem,
                     optin=smem > SMEM_DEFAULT, variant=variant,
                     per_sm=_per_sm(KMEANS_THREADS, smem, min_blocks))
+
+
+def fake_quant_constants(bits: int) -> tuple[float, float]:
+    """``(qmax, rq)`` at ``bits``: the largest level and the float32
+    reciprocal ``float32(1) / float32(qmax)`` that
+    :func:`repro_torch.kernels.ref.fake_quant_scale` multiplies by."""
+    qmax = 2.0 ** (bits - 1) - 1.0
+    return qmax, float(np.float32(1.0) / np.float32(qmax))
+
+
+def fake_quant_geometry(numel: int, cols: int, groups: int,
+                        per_channel: bool, aligned: bool) -> Geometry:
+    """The kernel and launch for ``numel`` floats of ``cols`` columns with a
+    scale per group of ``numel // groups`` consecutive floats (per node, or
+    per tensor where ``groups`` is 1) or per column (``per_channel``);
+    ``aligned``: input and output start on 16 bytes.
+
+    ``variant`` 0 and 1: one group per warp, ``tile`` groups a block,
+    float4 items (0) or floats (1); 2 and 3: per tensor (float4 or
+    floats), 4: per channel, each one cooperative launch of at most the
+    blocks that are resident at once."""
+    if not (numel >= 1 and cols >= 1 and groups >= 1 and numel % groups == 0
+            and numel % cols == 0 and numel // groups < 2 ** 31
+            and groups < 2 ** 31
+            and (not per_channel or (groups == 1 and cols <= FQ_MAX_COLS))):
+        raise ValueError(f"fake_quant: kernel takes whole groups of fewer "
+                         f"than 2**31 floats and at most {FQ_MAX_COLS} "
+                         f"per-channel columns, got numel={numel}, "
+                         f"cols={cols}, groups={groups}, "
+                         f"per_channel={per_channel}")
+    if per_channel:
+        blocks = min(-(-numel // (FQ_THREADS * FQ_CHANNEL_ITEMS)), SMS)
+        return Geometry(tile=0, group=0, blocks=blocks, threads=FQ_THREADS,
+                        smem=4 * cols, optin=False, variant=4,
+                        per_sm=FQ_PER_SM)
+    size = numel // groups
+    vec = aligned and size % 4 == 0
+    if groups == 1:
+        items = size // 4 if vec else size
+        blocks = min(-(-items // (FQ_THREADS * FQ_HELD)), SMS * FQ_PER_SM)
+        return Geometry(tile=0, group=0, blocks=blocks, threads=FQ_THREADS,
+                        smem=0, optin=False, variant=2 if vec else 3,
+                        per_sm=FQ_PER_SM)
+    tile = FQ_THREADS // 32
+    return Geometry(tile=tile, group=32, blocks=-(-groups // tile),
+                    threads=FQ_THREADS, smem=0, optin=False,
+                    variant=0 if vec else 1, per_sm=FQ_PER_SM)
+
+
+def _imp_warp_bytes(t: int, c: int) -> int:
+    # importance_select.cu warp_floats: the window and the T weights, each
+    # rounded up to whole float4s
+    return 4 * (-(-t * c // 4) * 4 + -(-t // 4) * 4)
+
+
+def importance_select_geometry(b: int, t: int, c: int, m: int,
+                               avg_width: int) -> Geometry:
+    """One warp per window, ``tile`` windows a block: about one block per SM
+    for the fleet's windows, within the default 48 KB of shared memory.
+    ``variant`` 0 is the (C, width) = (3, 8) instantiation, 1 the
+    runtime one."""
+    if not (b >= 1 and 1 <= t <= 64 and 1 <= c <= 8 and 1 <= m <= t
+            and avg_width >= 1):
+        raise ValueError(f"importance_select: kernel takes T <= 64, C <= 8, "
+                         f"1 <= m <= T, got B={b}, T={t}, C={c}, m={m}, "
+                         f"avg_width={avg_width}")
+    per_warp = _imp_warp_bytes(t, c)
+    tile = max(1, min(IMP_MAX_WARPS, -(-b // SMS), SMEM_DEFAULT // per_warp))
+    smem = tile * per_warp
+    return Geometry(tile=tile, group=32, blocks=-(-b // tile),
+                    threads=32 * tile, smem=smem, optin=False,
+                    variant=0 if (c, avg_width) == (3, 8) else 1,
+                    per_sm=_per_sm(32 * tile, smem, 1))
 
 
 _LAUNCHES = {"signature_corr": 0, "fake_quant": 0, "kmeans_coreset": 0,
@@ -202,8 +285,8 @@ def fake_quant_op(x: torch.Tensor, bits: int, per_channel: bool = False,
     The scale is one per tensor (default), one per last-dim channel
     (``per_channel``), or one per leading index (``per_sample``: each node
     of a batched activation gets its own amax, as each node does under the
-    JAX fleet's vmap).  The amax reduction runs outside the kernel, as in
-    the JAX package."""
+    JAX fleet's vmap).  On the card one kernel launch computes the whole
+    function, amax and scale included (:func:`fake_quant_geometry`)."""
     op = "fake_quant"
     _check(op, "x", x, None)
     if per_channel and per_sample:
@@ -213,16 +296,24 @@ def fake_quant_op(x: torch.Tensor, bits: int, per_channel: bool = False,
     x2d = x.reshape(-1, x.shape[-1]) if x.ndim > 1 else x.reshape(1, -1)
     r, c = x2d.shape
     rows_per_group = r // x.shape[0] if per_sample else r
-    scale = ref.fake_quant_scale(x2d, bits, per_channel, rows_per_group)
     if not _on_cuda(op, x):
+        scale = ref.fake_quant_scale(x2d, bits, per_channel, rows_per_group)
         out = ref.fake_quant_ref(x2d, scale, bits, per_channel,
                                  rows_per_group)
         return out.reshape(x.shape)
     out = torch.empty_like(x)
-    qmax = 2.0 ** (bits - 1) - 1.0
-    _launch(op, "fake_quant_launch", x.device, _ptr(x), _ptr(scale),
-            _ptr(out), x.numel(), c, rows_per_group * c, int(per_channel),
-            qmax)
+    geo = fake_quant_geometry(x.numel(), c, r // rows_per_group, per_channel,
+                              (x.data_ptr() | out.data_ptr()) % 16 == 0)
+    # the cooperative kernels' (variants 2-4) scratch: each block's maxima,
+    # written before they are read, so never zeroed
+    partial = (torch.empty(geo.blocks * (c if per_channel else 1),
+                           dtype=torch.int32, device=x.device)
+               if geo.variant >= 2 else None)
+    qmax, rq = fake_quant_constants(bits)
+    _launch(op, "fake_quant_launch", x.device, _ptr(x), _ptr(out),
+            None if partial is None else _ptr(partial), x.numel(), c,
+            rows_per_group * c, rq, qmax, geo.variant, geo.blocks,
+            geo.threads, geo.smem)
     return out
 
 
@@ -259,9 +350,7 @@ def importance_select_op(windows: torch.Tensor, m: int, spread: float = 0.25,
                          f"m={m}, T={t}, avg_width={avg_width}")
     if not _on_cuda(op, windows):
         return ref.importance_select_ref(windows, m, spread, avg_width)
-    if t > 64 or c > 8 or m > 32:
-        raise ValueError(f"{op}: kernel takes T <= 64, C <= 8, m <= 32, "
-                         f"got T={t}, C={c}, m={m}")
+    geo = importance_select_geometry(b, t, c, m, avg_width)
     dev = windows.device
     idx = torch.empty((b, m), dtype=torch.int32, device=dev)
     vals = torch.empty((b, m, c), dtype=torch.float32, device=dev)
@@ -269,5 +358,6 @@ def importance_select_op(windows: torch.Tensor, m: int, spread: float = 0.25,
     # the blend's constants as the plain version's float32 scalars round them
     _launch(op, "importance_select_launch", dev, _ptr(windows), _ptr(idx),
             _ptr(vals), _ptr(weights), b, t, c, m, avg_width, 1.0 - spread,
-            spread / t)
+            spread / t, geo.variant, geo.tile, geo.blocks, geo.threads,
+            geo.smem)
     return idx, vals, weights

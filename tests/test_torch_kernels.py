@@ -26,6 +26,7 @@ from repro.kernels import (fake_quant_op, importance_select_op,  # noqa: E402
 from repro.kernels import ref  # noqa: E402
 
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import ref as ops_ref  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
 CORR_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -104,6 +105,20 @@ def test_quant_per_sample_is_the_jax_fleet_vmap(bits, shape):
     want = np.asarray(jax.jit(jax.vmap(
         lambda v: fake_quant_op(v[None], bits)[0]))(x))
     np.testing.assert_allclose(got, want, **QUANT_TOL)
+
+
+@pytest.mark.parametrize("bits", [8, 12, 16])
+def test_quant_kernel_constant_is_the_plain_scale_multiplier(bits):
+    """The rq the wrapper passes the kernel is the float32 constant
+    ref.fake_quant_scale multiplies max(amax, 1e-9) by: a scale of amax 1
+    is rq itself."""
+    qmax, rq = ops.fake_quant_constants(bits)
+    assert qmax == 2.0 ** (bits - 1) - 1.0
+    plain = ops_ref.fake_quant_scale(torch.ones((1, 1)), bits, False, 1)
+    assert plain.dtype == torch.float32
+    assert plain.item() == rq
+    assert np.float32(rq) == rq                 # exact in float32
+    assert rq == float(np.float32(1.0) / np.float32(qmax))
 
 
 def test_quant_rounds_half_to_even():
@@ -192,6 +207,98 @@ def test_importance_ties_go_to_the_lower_index():
     idx, _, _ = ops.importance_select_op(_t(w), 4, avg_width=1)
     i2, _, _ = importance_select_op(w, m=4, avg_width=1, impl="pallas")
     np.testing.assert_array_equal(idx.numpy(), np.asarray(i2))
+
+
+def _plain_weights(windows, spread=0.25, avg_width=8):
+    """The (B, T) weights importance_select_ref ranks, in its arithmetic."""
+    b, t, c = windows.shape
+    pad_l = avg_width // 2
+    pad_r = avg_width - 1 - pad_l
+    xp = torch.cat([windows[:, :1].expand(b, pad_l, c), windows,
+                    windows[:, -1:].expand(b, pad_r, c)], dim=1)
+    acc = torch.zeros_like(windows)
+    for j in range(avg_width):
+        acc = acc + xp[:, j:j + t]
+    dev = (windows - acc / avg_width).abs()
+    detr = dev[..., 0]
+    for ci in range(1, c):
+        detr = detr + dev[..., ci]
+    total = torch.zeros_like(detr[:, 0])
+    for ti in range(t):
+        total = total + detr[:, ti]
+    w = detr / torch.clamp(total, min=1e-9)[:, None]
+    return ((1.0 - spread) * w + spread / t).numpy()
+
+
+def _rank_by_count(w, m):
+    """importance_select.cu's selection in numpy, step by step: count the
+    larger weights as the sign bits of float32 differences w[t] - w[u]
+    (+0 added to every weight first); where those counts are not a
+    permutation (their sum is not T(T-1)/2: some weights tie), add the
+    equal weights before the step; pick the steps of rank < m and write
+    each to the slot of the picks before it."""
+    b, t = w.shape
+    w = (w.astype(np.float32) + np.float32(0)).astype(np.float32)
+    pad = -(-t // 4) * 4 - t                 # the -inf padding to a float4
+    wp = np.concatenate([w, np.full((b, pad), -np.inf, np.float32)], axis=1)
+    out = np.full((b, m), -1, np.int32)
+    for i in range(b):
+        diff = (w[i][:, None] - wp[i][None, :]).astype(np.float32)
+        rank = (diff.view(np.uint32) >> 31).sum(axis=1)
+        if rank.sum() != t * (t - 1) // 2:
+            rank = rank + np.array([np.sum(w[i, :step] == w[i, step])
+                                    for step in range(t)])
+        picks = np.flatnonzero(rank < m)
+        assert len(picks) == m
+        out[i] = picks                      # ascending: slot = picks below
+    return out
+
+
+def _windows_with_levels(seed, shape, levels=3):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, levels, shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("case,m", [
+    ("random", 20), ("random", 1), ("random", 60), ("flat", 8),
+    ("flat", 60), ("levels", 20), ("levels", 37), ("t37", 1), ("t37", 5),
+    ("t37", 37), ("c5", 8)])
+def test_importance_rank_by_count_picks_the_plain_indices(case, m):
+    """The kernel's rank-by-count rule, emulated in numpy on the plain
+    version's weights, picks exactly importance_select_ref's indices:
+    random windows, flat windows with spread=0 (every weight 0), windows of
+    three levels (many tied weights, also with spread=0), T=37 with m=1 and
+    m=T, and the JAX tests' (13, 64, 5)."""
+    spread = 0.25
+    if case == "random":
+        x = _normal(10, (16, 60, 3))
+    elif case == "flat":
+        x, spread = np.ones((4, 60, 3), np.float32), 0.0
+    elif case == "levels":
+        x = _windows_with_levels(11, (16, 60, 3))
+        spread = 0.0 if m == 37 else 0.25
+    elif case == "t37":
+        x = _normal(12, (16, 37, 3))
+    else:
+        x = _normal(13, (13, 64, 5))
+    idx, _, _ = ops_ref.importance_select_ref(_t(x), m, spread)
+    w = _plain_weights(_t(x), spread)
+    np.testing.assert_array_equal(_rank_by_count(w, m), idx.numpy())
+
+
+@pytest.mark.parametrize("t", [5, 32, 37, 60, 64])
+def test_rank_by_count_is_the_stable_descending_sort(t):
+    """On weights with many exact ties, inside and across the two step
+    sets, and on -0 against +0, the rule picks what a stable descending
+    sort keeps."""
+    rng = np.random.default_rng(t)
+    w = rng.integers(0, 4, (64, t)).astype(np.float32) / 4
+    w[:8] = 0.0
+    w[8:16, ::3] = -0.0
+    for m in sorted({1, t // 3 + 1, t}):
+        order = np.argsort(-w, axis=1, kind="stable")[:, :m]
+        np.testing.assert_array_equal(_rank_by_count(w, m),
+                                      np.sort(order, axis=1))
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +405,112 @@ def test_geometry_opt_in_above_48_kb():
     assert corr.optin and corr.smem <= 227 * 1024
 
 
+# one slot's per-node activations (D2, and the lanes' stages) and the HAR
+# weights, at the fleet's node counts
+_FQ_ACTS = [(60, 3), (30, 32), (15, 64)]
+_HAR_WEIGHTS = [(5, 3, 32), (5, 32, 64), (960, 128), (128, 12)]
+
+
+@pytest.mark.parametrize("nodes", [3, 300, 3000])
+def test_quant_and_importance_geometry_fleet_shapes_are_one_wave(nodes):
+    for t, c in _FQ_ACTS:
+        geo = ops.fake_quant_geometry(nodes * t * c, c, nodes, False, True)
+        assert geo.variant == 0 and geo.group == 32 and geo.tile == 8
+        assert geo.blocks == -(-nodes // 8) and geo.waves == 1
+        assert geo.threads == ops.FQ_THREADS and geo.smem == 0
+        assert t * c <= 32 * 4 * ops.FQ_HELD     # held in registers
+    for shape in _HAR_WEIGHTS:
+        n = int(np.prod(shape))
+        geo = ops.fake_quant_geometry(n, shape[-1], 1, False, True)
+        assert geo.variant == 2 and geo.waves == 1
+        assert geo.blocks * geo.threads * 4 * ops.FQ_HELD >= n
+    imp = ops.importance_select_geometry(nodes, 60, 3, 20, 8)
+    assert imp.variant == 0 and imp.waves == 1 and imp.blocks <= ops.SMS
+    assert imp.tile == -(-nodes // ops.SMS) and imp.threads == 32 * imp.tile
+    assert imp.smem <= 48 * 1024 and not imp.optin
+    if nodes == 3000:
+        assert imp.blocks == 131 and imp.tile == 23
+
+
+_FQ_SHAPES = [(numel, cols, groups, per_channel, aligned)
+              for groups, size in ((1, 1), (1, 273), (1, 480), (1, 122_880),
+                                   (1, 8_388_608), (1, 40_000_000),
+                                   (7, 39), (3000, 180), (3000, 960),
+                                   (64, 2560), (16, 903), (5, 100_000),
+                                   (250_000, 180))
+              for numel, cols in ((groups * size, 3 if size % 3 == 0 else 1),)
+              for per_channel in (False, True)
+              for aligned in (False, True)
+              if not per_channel or groups == 1]
+
+
+def test_fake_quant_geometry_covers_the_accepted_range():
+    for numel, cols, groups, per_channel, aligned in _FQ_SHAPES:
+        geo = ops.fake_quant_geometry(numel, cols, groups, per_channel,
+                                      aligned)
+        case = (numel, cols, groups, per_channel, aligned, geo)
+        assert geo.threads == ops.FQ_THREADS and not geo.optin, case
+        assert geo.per_sm == ops.FQ_PER_SM, case
+        size = numel // groups
+        if per_channel:
+            assert geo.variant == 4, case
+            assert 1 <= geo.blocks <= ops.SMS, case        # co-resident
+            assert geo.smem == 4 * cols <= 48 * 1024, case
+        elif groups == 1:
+            vec = aligned and size % 4 == 0
+            assert geo.variant == (2 if vec else 3), case
+            assert 1 <= geo.blocks <= ops.SMS * ops.FQ_PER_SM, case
+            assert geo.waves == 1 and geo.smem == 0, case
+            items = size // 4 if vec else size
+            assert (geo.blocks - 1) * geo.threads * ops.FQ_HELD < items, case
+        else:
+            vec = aligned and size % 4 == 0
+            assert geo.variant == (0 if vec else 1), case
+            assert geo.group == 32 and geo.tile * 32 == geo.threads, case
+            assert geo.blocks == -(-groups // geo.tile), case
+            assert (geo.blocks - 1) * geo.tile < groups, case
+            assert geo.smem == 0, case
+
+
+@pytest.mark.parametrize("args", [
+    (0, 3, 1, False, True), (10, 3, 1, False, True), (12, 3, 5, False, True),
+    (12, 0, 1, False, True), (8192, 4097, 1, True, True),
+    (60, 3, 2, True, True), (2 ** 31 * 3, 3, 1, False, True)])
+def test_fake_quant_geometry_rejects_out_of_range(args):
+    with pytest.raises(ValueError, match="fake_quant: kernel takes"):
+        ops.fake_quant_geometry(*args)
+
+
+_IMP_SHAPES = [(b, t, c, m, width) for b in (1, 13, 3000, 250_000)
+               for t, c in ((1, 1), (37, 3), (60, 3), (64, 5), (64, 8))
+               for m in sorted({1, min(20, t), t})
+               for width in (1, 5, 8)]
+
+
+def test_importance_geometry_covers_the_accepted_range():
+    for shape in _IMP_SHAPES:
+        b, t, c, m, width = shape
+        geo = ops.importance_select_geometry(*shape)
+        assert geo.group == 32 and 1 <= geo.tile <= ops.IMP_MAX_WARPS, shape
+        assert geo.threads == 32 * geo.tile <= 1024, shape
+        assert geo.blocks == -(-b // geo.tile), shape           # every window,
+        assert (geo.blocks - 1) * geo.tile < b, shape           # no idle block
+        assert geo.smem <= 48 * 1024 and not geo.optin, shape
+        per_warp = 4 * (-(-t * c // 4) * 4 + -(-t // 4) * 4)
+        assert geo.smem == geo.tile * per_warp, shape
+        assert geo.variant == (0 if (c, width) == (3, 8) else 1), shape
+        if b <= ops.SMS * min(ops.IMP_MAX_WARPS, 48 * 1024 // per_warp):
+            assert geo.waves == 1, shape
+
+
+@pytest.mark.parametrize("shape", [(10, 65, 3, 8, 8), (10, 60, 9, 8, 8),
+                                   (10, 60, 3, 0, 8), (10, 60, 3, 61, 8),
+                                   (10, 60, 3, 8, 0), (0, 60, 3, 8, 8)])
+def test_importance_geometry_rejects_out_of_range(shape):
+    with pytest.raises(ValueError, match="T <= 64, C <= 8"):
+        ops.importance_select_geometry(*shape)
+
+
 @pytest.mark.parametrize("shape", [(10, 12, 65, 3), (10, 12, 60, 5),
                                    (10, 48, 64, 4), (10, 0, 60, 3),
                                    (10, 12, 0, 3)])
@@ -348,5 +561,12 @@ def test_build_names_library_by_source_hash():
     # then the stream
     assert len(build._ENTRY_POINTS["signature_corr_launch"]) == 3 + 4 + 4 + 1
     assert len(build._ENTRY_POINTS["kmeans_coreset_launch"]) == 4 + 5 + 4 + 1
+    # fake_quant: x, out, scratch, then numel, cols, group floats, rq, qmax,
+    # then (variant, blocks, threads, shared-memory bytes); importance:
+    # four pointers, B, T, C, m, width, keep, floor, then (variant, tile,
+    # blocks, threads, shared-memory bytes)
+    assert len(build._ENTRY_POINTS["fake_quant_launch"]) == 3 + 5 + 4 + 1
+    assert len(build._ENTRY_POINTS["importance_select_launch"]) == (
+        4 + 7 + 5 + 1)
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "--use_fast_math" not in build.NVCC_FLAGS
