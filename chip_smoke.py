@@ -34,7 +34,21 @@ Phases (any failure exits non-zero and prints no result):
    12 µJ, the intermittent lane) with churn, whose first 8 slots must agree
    with a CPU run of the plain versions on at least 99% of the decisions
    and within 1% on brown-out events and lane emissions;
-6. the kernel table as one JSON line, then the result line.
+6. the mixed HAR and bearing fleet of ``benchmarks/fleet_scale.py``'s
+   mixed rows (N=3000, S=32, ``TaskLaneConfig`` round robin, unscaled
+   harvest) with per-node streams (HAR windows for task 0, bearing
+   vibration resampled to the HAR grid and tiled to 3 channels for task
+   1), a host weight tree per task and telemetry: the per-task splits must
+   partition the totals, the telemetry lanes must equal the aggregates,
+   and the first 8 slots must agree with a CPU run of the plain versions
+   on at least 99% of the decisions and within 1% on the per-task
+   completions; timed and profiled with telemetry on and off;
+7. the streamed driver at ``_streaming_rows``' full point (N=3000, S=32,
+   segments of 4 slots, the shared stream plus 1e-3 times the node index)
+   with phase 5's lanes, the task lane and telemetry: bitwise equal on the
+   card to one materialized run from the same generator seed, with the
+   peak device memory of each run and the window bytes each holds;
+8. the kernel table as one JSON line, then the result line.
 """
 import json
 import subprocess
@@ -48,6 +62,11 @@ N_NODES, N_SLOTS = 3000, 8     # the top point and SLOTS of benchmarks/fleet_sca
 SCARCE_SLOTS, SCARCITY = 32, 0.04
 BROWNOUT_UJ, INITIAL_UJ = (6.0, 30.0), 12.0
 COMPARE_SLOTS = 8              # slots of the scarce run replayed on the CPU
+# the mixed rows (INTERMITTENT_N, INTERMITTENT_SLOTS, MIXED_TASK_CFG) and the
+# streaming rows (STREAM_N, STREAM_SLOTS, STREAM_CHUNK) of
+# benchmarks/fleet_scale.py
+MIXED_SLOTS = 32
+STREAM_SLOTS, STREAM_CHUNK = 32, 4
 IMPORTANCE_M = 20              # the HAR sampling points
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
@@ -739,6 +758,277 @@ def phase_scarce_fleet(torch, dev) -> dict:
     return fleet
 
 
+def phase_task_fleet(torch, dev) -> dict:
+    """The mixed HAR and bearing fleet: the task lane with a host tree per
+    task, and telemetry, at full HAR width, N=3000, S=32."""
+    import repro_torch
+    from repro_torch.configs.seeker_har import HAR
+    from repro_torch.core.decision import DEFER
+    from repro_torch.core.energy import fleet_harvest_traces
+    from repro_torch.core.recovery import init_generator
+    from repro_torch.data.sensors import (bearing_stream, class_signatures,
+                                          har_stream)
+    from repro_torch.kernels import ops
+    from repro_torch.models.har import har_init
+    from repro_torch.obs import categorical_counts, counter_value
+    from repro_torch.serving import TaskLaneConfig, fleet_task_assignment
+    from repro_torch.serving.fleet import draw_fleet_noise, to_device
+
+    n, s, cmp = N_NODES, MIXED_SLOTS, COMPARE_SLOTS
+    t, c = HAR.window, HAR.channels
+    g = torch.Generator(device=dev).manual_seed(4)
+    params = har_init(g, HAR)
+    hosts = tuple(har_init(torch.Generator(device=dev).manual_seed(seed), HAR)
+                  for seed in (10, 11))
+    task = TaskLaneConfig(per_task_host=True)
+    tasks = fleet_task_assignment(n, task.n_tasks, dev)
+    bearing = tasks == 1
+    n_b = int(bearing.sum())
+    har_w, har_l = har_stream(g, s, streams=n - n_b)        # (N0, S, T, C)
+    brg_w, brg_l = bearing_stream(g, s, t=t, streams=n_b)   # (N1, S, T, 1)
+    windows = torch.empty((n, s, t, c), device=dev)
+    windows[~bearing] = har_w
+    windows[bearing] = brg_w.expand(-1, -1, -1, c)
+    labels = torch.empty((s, n), dtype=torch.int64, device=dev)
+    labels[:, ~bearing] = har_l.T
+    labels[:, bearing] = brg_l.T
+    harvest = fleet_harvest_traces(g, n, s)
+    noise = draw_fleet_noise(g, s, n, t, c)
+    inputs = dict(signatures=class_signatures(device=dev), qdnn_params=params,
+                  host_params=hosts,
+                  gen_params=init_generator(g, t, c), har_cfg=HAR, task=task)
+
+    def run(telemetry=True):
+        return repro_torch.seeker_fleet_simulate(
+            windows, harvest, labels=labels, noise=noise,
+            telemetry=telemetry or None, device=dev, **inputs)
+
+    ops.reset_launch_counts()
+    res = run()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = {"signature_corr": s, "kmeans_coreset": s,
+            "fake_quant": 3 * s + 4, "importance_select": 0}
+    print(f"task fleet launches {launches}, expected {want}")
+    assert launches == want, (launches, want)
+
+    done, miss = res["completed_by_task"], res["deadline_miss_by_task"]
+    assert int(done.sum()) == int(res["completed"])
+    assert int((done + miss).sum()) == int(res["alive_slots"])
+    assert bool((done > 0).all()) and bool((miss > 0).all())
+    tel = res["telemetry"]
+    assert counter_value(tel, "fleet.wire_bytes") == int(
+        res["bytes_on_wire_exact"])
+    assert counter_value(tel, "fleet.completed") == int(res["completed"])
+    assert counter_value(tel, "fleet.alive_slots") == int(res["alive_slots"])
+    assert tel["fleet.decisions"].tolist() == res[
+        "decision_histogram"].tolist()
+    assert tel["fleet.task_completed"].tolist() == done.tolist()
+    assert bool(torch.isfinite(res["logits"]).all())
+    print(f"task fleet: completed_by_task {done.tolist()}, "
+          f"deadline_miss_by_task {miss.tolist()}, correct_by_task "
+          f"{res['correct_by_task'].tolist()}: the splits partition "
+          f"completed {int(res['completed'])} and alive slots "
+          f"{int(res['alive_slots'])}; the telemetry lanes equal the "
+          f"aggregates")
+
+    # host clock and profile, telemetry on and off in turns
+    timing = {True: [], False: []}
+    for on in (True, False, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(on)
+        torch.cuda.synchronize()
+        timing[on].append(time.perf_counter() - t0)
+    profiles = {on: _profile(torch, lambda on=on: run(on), s,
+                             min(timing[on]),
+                             "task_fleet" if on else "task_fleet_no_telemetry")
+                for on in (True, False)}
+
+    # the first slots again, on the CPU through the plain versions
+    t1 = time.perf_counter()
+    cpu_inputs = dict(inputs, host_params=tuple(to_device(h, "cpu")
+                                                for h in hosts),
+                      signatures=inputs["signatures"].cpu(),
+                      qdnn_params=to_device(params, "cpu"),
+                      gen_params=to_device(inputs["gen_params"], "cpu"))
+    cpu = repro_torch.seeker_fleet_simulate(
+        windows[:, :cmp].cpu(), harvest[:, :cmp].cpu(),
+        labels=labels[:cmp].cpu(),
+        noise={k: v[:cmp].cpu() for k, v in noise.items()}, telemetry=True,
+        device="cpu", **cpu_inputs)
+    cpu_secs = time.perf_counter() - t1
+    dec = res["decisions"][:cmp].cpu()
+    agree = float((cpu["decisions"] == dec).float().mean())
+    sent = (dec != DEFER) & res["alive"][:cmp].cpu()
+    card_done = categorical_counts(tasks.cpu()[None].expand(sent.shape),
+                                   task.n_tasks, sent)
+    print(f"task fleet N={n}: the first {cmp} slots' decisions agree with "
+          f"the CPU plain run on {agree:.6f} of node-slots; completed_by_task "
+          f"card {card_done.tolist()}, cpu "
+          f"{cpu['completed_by_task'].tolist()}")
+    assert agree >= 0.99
+    for a, b in zip(card_done.tolist(), cpu["completed_by_task"].tolist()):
+        assert abs(a - b) <= 0.01 * max(b, 1), (card_done, cpu)
+    out = dict(
+        nodes=n, slots=s, per_task_host=True,
+        ms_per_slot={"telemetry": [x / s * 1e3 for x in timing[True]],
+                     "no_telemetry": [x / s * 1e3 for x in timing[False]]},
+        decision_agreement_first_slots=agree, compared_slots=cmp,
+        completed_by_task=done.tolist(), deadline_miss_by_task=miss.tolist(),
+        correct_by_task=res["correct_by_task"].tolist(),
+        accuracy_by_task=res["accuracy_by_task"].tolist(),
+        card_completed_by_task_first_slots=card_done.tolist(),
+        cpu_completed_by_task_first_slots=cpu["completed_by_task"].tolist(),
+        decision_histogram=res["decision_histogram"].tolist(),
+        completed_frac=float(res["completed_frac"]),
+        bytes_on_wire=int(res["bytes_on_wire_exact"]), launches=launches,
+        cpu_plain_seconds=cpu_secs,
+        profile={"telemetry": profiles[True],
+                 "no_telemetry": profiles[False]})
+    print(f"task fleet: ms/slot with telemetry "
+          f"{out['ms_per_slot']['telemetry']}, without "
+          f"{out['ms_per_slot']['no_telemetry']}; cpu plain run of "
+          f"{cmp} slots {cpu_secs:.1f} s")
+    return out
+
+
+def _flat(tree) -> list:
+    """The tensors of a nested NamedTuple or dict, in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _flat(v)]
+    return [tree]
+
+
+def phase_streamed(torch, dev) -> dict:
+    """The streamed driver against one materialized run, bitwise, with
+    phase 5's lanes, the task lane and telemetry, N=3000, S=32."""
+    import repro_torch
+    from repro_torch.configs.seeker_har import HAR
+    from repro_torch.core.decision import IntermittentConfig
+    from repro_torch.core.energy import (BrownoutConfig, fleet_alive_traces,
+                                         fleet_harvest_traces)
+    from repro_torch.core.recovery import init_generator
+    from repro_torch.data.sensors import class_signatures, har_stream
+    from repro_torch.kernels import ops
+    from repro_torch.models.har import har_aux_init, har_init
+    from repro_torch.serving import TaskLaneConfig
+    from repro_torch.serving.fleet import _active_lanes
+    from repro_torch.serving.fleet_lanes import fleet_counter_keys
+
+    n, s, chunk = N_NODES, STREAM_SLOTS, STREAM_CHUNK
+    t, c = HAR.window, HAR.channels
+    g = torch.Generator(device=dev).manual_seed(5)
+    params = har_init(g, HAR)
+    task, intermittent = TaskLaneConfig(), IntermittentConfig(1, 0.0)
+    brownout = BrownoutConfig(*BROWNOUT_UJ)
+    inputs = dict(
+        signatures=class_signatures(device=dev), qdnn_params=params,
+        host_params=params, gen_params=init_generator(g, t, c), har_cfg=HAR,
+        aux_params=har_aux_init(g, HAR), initial_uj=INITIAL_UJ,
+        brownout=brownout, intermittent=intermittent, task=task,
+        telemetry=True)
+    shared, shared_labels = har_stream(g, s)                  # (S, T, C)
+    bias = 1e-3 * torch.arange(n, dtype=torch.float32,
+                               device=dev)[:, None, None, None]
+
+    def node_windows(a, b):
+        """(N, b - a, T, C): one segment of the fleet's per-node streams."""
+        return shared[a:b][None].expand(n, b - a, t, c) + bias
+
+    labels = shared_labels[:, None].expand(s, n).contiguous()
+    harvest = fleet_harvest_traces(g, n, s) * SCARCITY
+    alive = fleet_alive_traces(g, n, s)
+    kw = dict(labels=labels, alive=alive, device=dev, **inputs)
+    seed = 6
+
+    def measured(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return (res, time.perf_counter() - t0, ops.launch_counts(),
+                torch.cuda.max_memory_allocated())
+
+    active = _active_lanes(intermittent, task, brownout)
+    keys = (["decisions", "payload_bytes", "stored_uj", "alive", "brownout",
+             "it_emit", "it_label", "it_conf", "it_src", "it_stage",
+             "bytes_on_wire_exact", "final_brownout", "correct_by_task",
+             "it_correct_full", "it_correct_early"]
+            + list(fleet_counter_keys(active)))
+
+    def keep(res):
+        """What the comparison reads, moved off the card (the run's own
+        memory is freed before the next run's peak is taken)."""
+        return ({k: res[k].cpu() for k in keys},
+                [x.cpu() for x in _flat((res["final_state"],
+                                         res["final_intermittent"],
+                                         res["telemetry"]))])
+
+    mat, mat_secs, mat_launches, mat_peak = measured(
+        lambda: repro_torch.seeker_fleet_simulate(
+            node_windows(0, s), harvest,
+            generator=torch.Generator(device=dev).manual_seed(seed), **kw))
+    mat_kept = keep(mat)
+    del mat
+    torch.cuda.empty_cache()
+    st, st_secs, st_launches, st_peak = measured(
+        lambda: repro_torch.seeker_fleet_simulate_streamed(
+            node_windows, harvest, chunk=chunk,
+            generator=torch.Generator(device=dev).manual_seed(seed), **kw))
+    n_chunks = st["n_chunks"]
+    st_kept = keep(st)
+    del st
+    torch.cuda.empty_cache()
+    want = {"signature_corr": s, "kmeans_coreset": s,
+            "fake_quant": 6 * s + 6, "importance_select": 0}
+    want_st = dict(want, fake_quant=6 * s + 6 * n_chunks)
+    print(f"streamed: launches materialized {mat_launches}, expected {want}; "
+          f"streamed {st_launches}, expected {want_st} (the weights are "
+          f"quantized once per segment, {n_chunks} segments)")
+    assert mat_launches == want, (mat_launches, want)
+    assert st_launches == want_st, (st_launches, want_st)
+    for k in keys:
+        assert torch.equal(mat_kept[0][k], st_kept[0][k]), k
+    assert len(mat_kept[1]) == len(st_kept[1])
+    for a, b in zip(mat_kept[1], st_kept[1]):
+        assert torch.equal(a, b)
+    window_bytes = {"materialized": 4 * n * s * t * c,
+                    "streamed": 4 * n * chunk * t * c}
+    peaks = {"materialized": mat_peak, "streamed": st_peak}
+    print(f"streamed N={n} S={s} chunk={chunk}: bitwise equal to the "
+          f"materialized run on {len(keys)} traces and counters and "
+          f"{len(mat_kept[1])} final-state and telemetry tensors; "
+          f"torch.cuda.max_memory_allocated materialized {mat_peak} B, "
+          f"streamed {st_peak} B (ratio {mat_peak / st_peak:.3f}); window "
+          f"bytes held {window_bytes}; seconds materialized {mat_secs:.3f}, "
+          f"streamed {st_secs:.3f}")
+    hist = mat_kept[0]["decision_histogram"]
+    assert int(hist.sum()) == int(mat_kept[0]["alive_slots"])
+
+    # the materialized run once more, profiled, for its launches and
+    # device time a slot beside phase 5's
+    secs = mat_secs
+    profile = _profile(torch, lambda: repro_torch.seeker_fleet_simulate(
+        node_windows(0, s), harvest,
+        generator=torch.Generator(device=dev).manual_seed(seed), **kw),
+        s, secs, "streamed_materialized")
+    return dict(
+        nodes=n, slots=s, chunk=chunk, n_chunks=n_chunks,
+        bitwise_equal_keys=keys, peak_bytes=peaks,
+        peak_ratio=mat_peak / st_peak, window_bytes=window_bytes,
+        seconds={"materialized": mat_secs, "streamed": st_secs},
+        launches={"materialized": mat_launches, "streamed": st_launches},
+        decision_histogram=hist.tolist(),
+        completed_by_task=mat_kept[0]["completed_by_task"].tolist(),
+        brownout_events=int(mat_kept[0]["brownout_events"]),
+        it_full=int(mat_kept[0]["it_full"]), profile=profile)
+
+
 _SOURCES = {
     "signature_corr": ("src/repro_torch/kernels/csrc/signature_corr.cu",
                        "src/repro/kernels/signature_corr.py:56"),
@@ -758,19 +1048,31 @@ def main() -> int:
     ptxas = phase_build()
     dev = torch.device("cuda")
     table, extra = phase_kernels(torch, dev)
-    fleet, launches = phase_fleet(torch, dev)
-    # each kernel's launches on its path: the fleet's three, and the
-    # sampler's entry point
-    launches["importance_select"] = phase_importance(torch, dev)[
-        "importance_select"]
+    fleet, fleet_launches = phase_fleet(torch, dev)
+    importance = phase_importance(torch, dev)
     scarce = phase_scarce_fleet(torch, dev)
+    task_fleet = phase_task_fleet(torch, dev)
+    streamed = phase_streamed(torch, dev)
+    # each kernel's launches on every path, each counted from zero;
+    # ``launches`` is its main path's: the fleet's three, and the sampler's
+    # entry point
+    by_path = {"fleet": fleet_launches, "importance": importance,
+               "scarce_fleet": scarce["launches"],
+               "task_fleet": task_fleet["launches"],
+               "streamed": streamed["launches"]["streamed"]}
+    launches = dict(fleet_launches,
+                    importance_select=importance["importance_select"])
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[name], **table[name])
+                    launches=launches[name],
+                    launches_by_path={p: v.get(name, 0)
+                                      for p, v in by_path.items()},
+                    **table[name])
                for name, (src, rep) in _SOURCES.items()]
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, kernels=kernels, timing=extra, ptxas=ptxas,
-             fleet=fleet, scarce_fleet=scarce), indent=1))
+             fleet=fleet, scarce_fleet=scarce, task_fleet=task_fleet,
+             streamed=streamed), indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,4 +6,8 @@ same array layouts at every public function, and tests that hold each
 function against its JAX twin.  It imports neither JAX nor ``repro``.
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
-from .serving import seeker_fleet_simulate, seeker_simulate  # noqa: F401
+from .serving import (  # noqa: F401
+    TaskLaneConfig, fleet_task_assignment, fleet_telemetry_spec,
+    seeker_fleet_simulate, seeker_fleet_simulate_streamed, seeker_simulate,
+    stack_task_params,
+)

@@ -18,7 +18,8 @@ from .core.recovery import GeneratorParams
 from .serving.edge_host import IntermittentState, SeekerNodeState
 
 __all__ = ["tensor", "har_params", "aux_params", "generator_params",
-           "aac_table", "node_state", "intermittent_state"]
+           "aac_table", "node_state", "intermittent_state",
+           "task_host_params", "telemetry_state"]
 
 
 def tensor(x, dtype: torch.dtype | None = None, device=None) -> torch.Tensor:
@@ -67,3 +68,15 @@ def intermittent_state(state, device=None) -> IntermittentState:
         stage=tensor(state.stage, torch.int32, device),
         acts=tensor(state.acts, torch.float32, device),
         src_slot=tensor(state.src_slot, torch.int32, device))
+
+
+def task_host_params(trees, device=None) -> tuple[dict, ...]:
+    """A sequence of ``repro.models.har.har_init`` trees, one per task (the
+    ``per_task_host`` form of ``host_params``) -> a tuple of the port's."""
+    return tuple(har_params(t, device) for t in trees)
+
+
+def telemetry_state(metrics, device=None) -> dict[str, torch.Tensor]:
+    """A JAX engine's ``res["telemetry"]`` dict -> the port's int32
+    tensors (a ``telemetry_state0``)."""
+    return {k: tensor(v, torch.int32, device) for k, v in metrics.items()}

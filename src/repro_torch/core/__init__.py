@@ -11,9 +11,9 @@ from .recovery import (  # noqa: F401
 )
 from .memo import pearson, signature_correlations  # noqa: F401
 from .energy import (  # noqa: F401
-    EnergyCosts, TABLE2_COSTS, D5_RAW, harvest_trace, EH_SOURCES,
-    fleet_source_assignment, fleet_harvest_traces, fleet_phase_offsets,
-    fleet_alive_traces, BrownoutConfig, supercap_step,
+    EnergyCosts, TABLE2_COSTS, BEARING_COST_SCALE, D5_RAW, harvest_trace,
+    EH_SOURCES, fleet_source_assignment, fleet_harvest_traces,
+    fleet_phase_offsets, fleet_alive_traces, BrownoutConfig, supercap_step,
     supercap_step_direct, SUPERCAP_CAP_UJ, SUPERCAP_CHARGE_EFF,
     PredictorState, predictor_init, predictor_update, predictor_forecast,
 )

@@ -75,7 +75,8 @@ def choose_decision(max_corr: torch.Tensor, stored_uj: torch.Tensor,
                     forecast_uj: torch.Tensor, costs: EnergyCosts,
                     corr_threshold: float = 0.95,
                     allow_full_dnn: bool = False,
-                    harvested_uj: torch.Tensor | None = None
+                    harvested_uj: torch.Tensor | None = None,
+                    cost_scale: torch.Tensor | None = None
                     ) -> DecisionOutcome:
     """Fig. 8 walk: memo gate -> local DNN if affordable -> cluster coreset
     -> sampling coreset -> defer.
@@ -84,18 +85,25 @@ def choose_decision(max_corr: torch.Tensor, stored_uj: torch.Tensor,
     decision must be payable from ``stored + harvested`` alone, the memo
     gate is energy-gated, and DEFER's spend clamps to zero when not even
     sensing is payable.  Without it the legacy forecast-budget walk runs.
+
+    ``cost_scale`` (the task lane's per-node float32 factor, shaped like
+    ``budget``) scales the whole ladder per node: the table becomes
+    ``cost * cost_scale``, one float32 row per node.  ``None`` leaves the
+    table and the arithmetic as they are.
     """
     strict = harvested_uj is not None
     budget = stored_uj + (harvested_uj if strict else forecast_uj)
     cost = decision_energy(costs, device=budget.device)
+    if cost_scale is not None:
+        cost = cost * cost_scale[..., None]                  # (..., 9)
 
     memo_hit = max_corr >= corr_threshold
     if strict:
-        memo_hit = memo_hit & (budget >= cost[D0_MEMO])
-    can_full = budget >= cost[D1_DNN_FULL]
-    can_quant = budget >= cost[D2_DNN_QUANT]
-    can_cluster = budget >= cost[D3_CLUSTER]
-    can_sample = budget >= cost[D4_SAMPLING]
+        memo_hit = memo_hit & (budget >= cost[..., D0_MEMO])
+    can_full = budget >= cost[..., D1_DNN_FULL]
+    can_quant = budget >= cost[..., D2_DNN_QUANT]
+    can_cluster = budget >= cost[..., D3_CLUSTER]
+    can_sample = budget >= cost[..., D4_SAMPLING]
 
     def code(c):
         return torch.full_like(budget, c, dtype=torch.int32)
@@ -113,7 +121,10 @@ def choose_decision(max_corr: torch.Tensor, stored_uj: torch.Tensor,
                                       code(DEFER)))
     local = torch.where(can_dnn, dnn_choice, offload)
     decision = torch.where(memo_hit, code(D0_MEMO), local)
-    spend = cost[decision.long()]
+    if cost_scale is None:
+        spend = cost[decision.long()]
+    else:
+        spend = torch.gather(cost, -1, decision.long()[..., None])[..., 0]
     if strict:
         spend = torch.where(budget >= spend, spend, torch.zeros_like(spend))
     return DecisionOutcome(decision=decision, spend=spend)

@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 __all__ = [
-    "EnergyCosts", "TABLE2_COSTS", "D5_RAW", "harvest_trace", "EH_SOURCES",
+    "EnergyCosts", "TABLE2_COSTS", "BEARING_COST_SCALE", "D5_RAW",
+    "harvest_trace", "EH_SOURCES",
     "fleet_source_assignment", "fleet_harvest_traces", "fleet_phase_offsets",
     "fleet_alive_traces", "supercap_step", "supercap_step_direct",
     "SUPERCAP_CAP_UJ", "SUPERCAP_CHARGE_EFF", "BrownoutConfig",
@@ -84,6 +85,12 @@ class EnergyCosts:
 
 
 TABLE2_COSTS = EnergyCosts()
+
+# The task lane's ladder scale for bearing-vibration monitors: their
+# kHz-rate front end costs more per slot than a 50 Hz IMU's, and 1.5x is
+# the ratio of the bearing window's MAC count to HAR's on the shared (T, C)
+# grid.  One scalar on the whole ladder keeps its structure, only shifted.
+BEARING_COST_SCALE = 1.5
 
 # ---------------------------------------------------------------------------
 # Harvest traces (µJ per slot); one slot is one 0.6 s sensing window.

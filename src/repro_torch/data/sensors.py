@@ -1,11 +1,19 @@
-"""Synthetic HAR sensor data (MHEALTH-like), drawn with ``torch.Generator``.
+"""Synthetic sensor data, drawn with ``torch.Generator``.
 
-PyTorch counterpart of the HAR part of :mod:`repro.data.sensors`: the same
-signal family (a shared quasi-periodic gait component plus three weak
-class-coded transient events per window, instance jitter and sensor
-noise), generated batched on the generator's device so a fleet's streams
-are made in bulk.  The numbers match the JAX generators in distribution,
-not value for value; parity tests feed both packages the same arrays.
+PyTorch counterpart of :mod:`repro.data.sensors`, with the same signal
+families:
+
+* HAR (MHEALTH-like): a shared quasi-periodic gait component plus three
+  weak class-coded transient events per window, instance jitter and sensor
+  noise;
+* bearing fault (CWRU-like): the rotation fundamental and its harmonic,
+  plus a fault-type impulse train at the CWRU defect multipliers, scaled by
+  severity, with a ring-down and noise.
+
+Windows are generated batched on the generator's device, so a fleet's
+streams are made in bulk.  The numbers match the JAX generators in
+distribution, not value for value; parity tests feed both packages the
+same arrays.
 """
 from __future__ import annotations
 
@@ -13,7 +21,9 @@ import math
 
 import torch
 
-__all__ = ["har_window", "har_windows", "har_stream", "class_signatures"]
+__all__ = ["har_window", "har_windows", "har_stream", "har_dataset",
+           "class_signatures", "bearing_window", "bearing_windows",
+           "bearing_stream", "bearing_dataset"]
 
 _N_HARM = 14
 
@@ -85,17 +95,31 @@ def har_stream(generator: torch.Generator, n: int, t: int = 60,
     ``dwell`` windows (the paper's AAC premise).  Returns (windows (n, T, C),
     labels (n,)); with ``streams=N``, N independent streams (N, n, T, C) and
     (N, n), one per fleet node."""
-    dev = generator.device
     lead = 1 if streams is None else streams
-    n_segments = (n + dwell - 1) // dwell
-    seg = torch.randint(0, n_classes, (lead, n_segments), generator=generator,
-                        device=dev)
-    labels = seg.repeat_interleave(dwell, dim=1)[:, :n]
+    labels = _segment_labels(generator, lead, n, n_classes, dwell)
     windows = har_windows(generator, labels.reshape(-1), t, channels,
                           n_classes).reshape(lead, n, t, channels)
     if streams is None:
         return windows[0], labels[0]
     return windows, labels
+
+
+def har_dataset(generator: torch.Generator, n: int, t: int = 60,
+                channels: int = 3, n_classes: int = 12):
+    """IID windows for classifier training: (windows (n, T, C), labels
+    (n,))."""
+    labels = torch.randint(0, n_classes, (n,), generator=generator,
+                           device=generator.device)
+    return har_windows(generator, labels, t, channels, n_classes), labels
+
+
+def _segment_labels(generator: torch.Generator, lead: int, n: int,
+                    n_classes: int, dwell: int) -> torch.Tensor:
+    """(lead, n) labels that change only every ``dwell`` windows."""
+    n_segments = (n + dwell - 1) // dwell
+    seg = torch.randint(0, n_classes, (lead, n_segments), generator=generator,
+                        device=generator.device)
+    return seg.repeat_interleave(dwell, dim=1)[:, :n]
 
 
 def class_signatures(t: int = 60, channels: int = 3, n_classes: int = 12,
@@ -105,3 +129,67 @@ def class_signatures(t: int = 60, channels: int = 3, n_classes: int = 12,
     g = torch.Generator(device=device or "cpu").manual_seed(7)
     return har_windows(g, torch.arange(n_classes), t, channels, n_classes,
                        noise=0.0)
+
+
+# ---------------------------------------------------------------------------
+# Bearing fault (CWRU-like)
+# ---------------------------------------------------------------------------
+
+# per class: the defect frequency as a multiple of the shaft rate (the CWRU
+# BPFI/BPFO/BSF multipliers) and the severity; class 0 is healthy
+_FAULT_FREQ = (0.0, 3.585, 5.415, 4.7135, 3.585, 5.415, 4.7135, 3.585, 5.415,
+               4.7135)
+_FAULT_SEV = (0.0, 0.6, 0.6, 0.6, 1.2, 1.2, 1.2, 2.0, 2.0, 2.0)
+
+
+def bearing_windows(generator: torch.Generator, labels: torch.Tensor,
+                    t: int = 120, rpm_hz: float = 15.0, fs: float = 1200.0,
+                    noise: float = 0.15) -> torch.Tensor:
+    """(B, T, 1) vibration windows, one of each class in ``labels`` (B,):
+    class 0 healthy, 1-9 fault type x severity."""
+    dev = generator.device
+    labels = labels.to(dev).long()
+    b = labels.shape[0]
+    tgrid = torch.arange(t, device=dev, dtype=torch.float32)[None] / fs
+    phase = 2 * math.pi * torch.rand((b, 1), generator=generator, device=dev)
+    base = (torch.sin(2 * math.pi * rpm_hz * tgrid + phase)
+            + 0.3 * torch.sin(2 * math.pi * 2 * rpm_hz * tgrid + 1.7 * phase))
+    f_def = torch.tensor(_FAULT_FREQ, device=dev)[labels][:, None] * rpm_hz
+    sev = torch.tensor(_FAULT_SEV, device=dev)[labels][:, None]
+    jitter = 1.0 + 0.05 * torch.randn((b, 1), generator=generator, device=dev)
+    impulses = sev * torch.cos(math.pi * f_def * jitter * tgrid + phase) ** 4
+    ring = sev * 0.4 * torch.sin(2 * math.pi * 5.1 * rpm_hz * tgrid) * impulses
+    sig = base + impulses + ring + noise * torch.randn(
+        (b, t), generator=generator, device=dev)
+    return sig[..., None]
+
+
+def bearing_window(generator: torch.Generator, label: int, t: int = 120,
+                   rpm_hz: float = 15.0, fs: float = 1200.0,
+                   noise: float = 0.15) -> torch.Tensor:
+    """One (T, 1) vibration window of the given class."""
+    labels = torch.tensor([label], device=generator.device)
+    return bearing_windows(generator, labels, t, rpm_hz, fs, noise)[0]
+
+
+def bearing_stream(generator: torch.Generator, n: int, t: int = 120,
+                   n_classes: int = 10, dwell: int = 16,
+                   streams: int | None = None):
+    """A stream of ``n`` vibration windows whose class changes only every
+    ``dwell`` windows: (windows (n, T, 1), labels (n,)); with ``streams=N``,
+    (N, n, T, 1) and (N, n)."""
+    lead = 1 if streams is None else streams
+    labels = _segment_labels(generator, lead, n, n_classes, dwell)
+    windows = bearing_windows(generator, labels.reshape(-1), t
+                              ).reshape(lead, n, t, 1)
+    if streams is None:
+        return windows[0], labels[0]
+    return windows, labels
+
+
+def bearing_dataset(generator: torch.Generator, n: int, t: int = 120,
+                    n_classes: int = 10):
+    """IID vibration windows: (windows (n, T, 1), labels (n,))."""
+    labels = torch.randint(0, n_classes, (n,), generator=generator,
+                           device=generator.device)
+    return bearing_windows(generator, labels, t), labels

@@ -20,6 +20,7 @@ slot, and each node's progress selects among them.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -85,12 +86,15 @@ def seeker_sensor_step_given_corr(
         qp: dict, aac_table: AACTable | None,
         costs: EnergyCosts, k_max: int = 12, m_samples: int = 20,
         quant_bits: int = 16, corr_threshold: float = 0.95,
-        strict_energy: bool = False) -> SensorStepOut:
+        strict_energy: bool = False,
+        cost_scale: torch.Tensor | None = None) -> SensorStepOut:
     """One sensing slot on N nodes with the signature correlations
     ``corr`` (N, L) precomputed.  ``qp`` is the pre-quantized D2 network
     (:func:`repro_torch.models.har.quantize_params`), so a fleet run
     quantizes its weights once; ``u`` (N, T) is the D4 Gumbel uniforms.
-    ``strict_energy`` switches the ladder to store-and-execute accounting."""
+    ``strict_energy`` switches the ladder to store-and-execute accounting.
+    ``cost_scale`` (N,) is the task lane's per-node ladder scale
+    (:class:`repro_torch.serving.fleet_lanes.TaskLaneConfig`)."""
     max_corr = corr.amax(dim=-1)
     memo_label = torch.argmax(corr, dim=-1).to(torch.int32)
 
@@ -99,7 +103,8 @@ def seeker_sensor_step_given_corr(
     outcome = choose_decision(
         max_corr, state.stored_uj, forecast, costs,
         corr_threshold=corr_threshold,
-        harvested_uj=harvested_uj if strict_energy else None)
+        harvested_uj=harvested_uj if strict_energy else None,
+        cost_scale=cost_scale)
     decision = outcome.decision
 
     # --- D2: quantized DNN on-node (executed unconditionally, masked out) ---
@@ -242,13 +247,24 @@ class IntermittentLaneOut(NamedTuple):
     state: IntermittentState
 
 
+@functools.lru_cache(maxsize=16)
+def _stage_costs(costs: EnergyCosts, quant_bits: int,
+                 device: torch.device) -> torch.Tensor:
+    """:meth:`EnergyCosts.stage_costs` as a float32 tensor on ``device``,
+    made once per run configuration."""
+    return torch.tensor(costs.stage_costs(quant_bits), dtype=torch.float32,
+                        device=device)
+
+
 def intermittent_lane_step(window: torch.Tensor, state: SeekerNodeState,
                            harvested_uj: torch.Tensor,
                            ladder_decision: torch.Tensor,
                            it: IntermittentState, slot: int, *, qp: dict,
                            qa: dict, har_cfg: HARConfig, costs: EnergyCosts,
                            quant_bits: int, cfg: IntermittentConfig,
-                           reserve_uj: float = 0.0) -> IntermittentLaneOut:
+                           reserve_uj: float = 0.0,
+                           cost_scale: torch.Tensor | None = None
+                           ) -> IntermittentLaneOut:
     """One slot of the partial-inference lane for N nodes, after the ladder.
 
     The lane engages where an inference is in flight (it resumes before new
@@ -266,16 +282,25 @@ def intermittent_lane_step(window: torch.Tensor, state: SeekerNodeState,
     ``qp`` and ``qa`` are the backbone and auxiliary heads, quantized once
     per run; ``slot`` is the global index of this slot.  All three stages
     run for every node (three ``fake_quant`` launches) and each node's
-    progress selects among them."""
+    progress selects among them.
+
+    ``cost_scale`` (N,) is the task lane's per-node scale: sensing, the
+    result's transmission, the auxiliary head and every stage cost scale
+    with it, in float32, as the ladder's table does."""
     sense, tx, aux_c = costs.sense, costs.tx_result, costs.aux_head
     stage_cost = costs.stage_costs(quant_bits)
     n = window.shape[0]
+    if cost_scale is not None:
+        sense, tx, aux_c = (sense * cost_scale, tx * cost_scale,
+                            aux_c * cost_scale)
+        stage_cost = _stage_costs(costs, quant_bits, cost_scale.device
+                                  )[:, None] * cost_scale       # (3, N)
 
     engaged = it.active | (ladder_decision == DEFER)
     budget = state.stored_uj + harvested_uj
     can_run = engaged & (budget >= sense)
     zero = torch.zeros_like(budget)
-    spend = torch.where(can_run, torch.full_like(budget, sense), zero)
+    spend = torch.where(can_run, sense, zero)
     rem = budget - spend
 
     # resume-before-start: an in-flight inference owns the slot; otherwise
@@ -307,9 +332,8 @@ def intermittent_lane_step(window: torch.Tensor, state: SeekerNodeState,
                   & (rem >= aux_c + tx + reserve_uj)
                   & (conf >= cfg.exit_threshold))
 
-    spend = (spend + torch.where(emit_full, torch.full_like(zero, tx), zero)
-             + torch.where(emit_early, torch.full_like(zero, aux_c + tx),
-                           zero))
+    spend = (spend + torch.where(emit_full, tx, zero)
+             + torch.where(emit_early, aux_c + tx, zero))
     emitted = emit_full | emit_early
     label = torch.where(emit_full, torch.argmax(logits_full, dim=-1),
                         torch.argmax(aux_logits, dim=-1)).to(torch.int32)

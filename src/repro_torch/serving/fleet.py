@@ -36,41 +36,55 @@ Lanes (:mod:`repro_torch.serving.fleet_lanes`), as in the JAX engine:
   full-depth results (D8), with three more ``fake_quant`` launches per
   slot (stage 0 two, stage 1 one) and two per run for the auxiliary heads.
 
-The task and telemetry lanes are not ported yet: passing one raises
-``NotImplementedError``.
+* tasks (``task=``, ``tasks=``): each node has a static task id (HAR
+  wearables and bearing monitors in one fleet) that scales its whole cost
+  ladder, optionally picks its host weights (``per_task_host``: one
+  :func:`seeker_host_step` per task on that task's nodes), and splits the
+  completion, deadline-miss and accuracy counts per task;
+* telemetry (``telemetry=``): registry lanes
+  (:func:`fleet_telemetry_spec`, exact int32 counters, the decision
+  histogram, a stored-energy gauge) advanced each slot from the same masked
+  values the aggregates reduce; the lanes' counters are summed in one
+  stacked reduction per slot.
+
+:func:`seeker_fleet_simulate_streamed` feeds the engine in segments of
+``chunk`` slots, chained through the resume arguments, so only one segment
+of windows exists at a time while every trace and counter is bitwise one
+long run.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from ..core.aac import AACTable
 from ..core.coreset import raw_payload_bytes
-from ..core.decision import (D4_SAMPLING, D6_PARTIAL, DEFER,
-                             N_INTERMITTENT_DECISIONS, IntermittentConfig)
+from ..core.decision import (D4_SAMPLING, DEFER, N_INTERMITTENT_DECISIONS,
+                             IntermittentConfig)
 from ..core.energy import (BrownoutConfig, EnergyCosts, predictor_init,
                            supercap_step)
 from ..kernels.ops import signature_corr_op
 from ..models.har import HARConfig, quantize_params
+from ..obs import (MetricsSpec, categorical_counts, counters_add,
+                   metrics_init, metrics_merge, spec_union)
+from ..obs import trace as obs_trace
 from .edge_host import (IntermittentState, SeekerNodeState,
                         intermittent_fleet_init, intermittent_lane_step,
                         seeker_host_step, seeker_sensor_step_given_corr)
-from .fleet_lanes import FLEET_LANES, FleetCarry, fleet_trace_keys
+from .fleet_lanes import (FLEET_LANES, N_DECISIONS, FleetCarry,
+                          TaskLaneConfig, _completed, fleet_counter_keys,
+                          fleet_task_assignment, fleet_telemetry_lanes,
+                          fleet_trace_keys)
 
 __all__ = ["N_DECISIONS", "NOISE_KEYS", "resolve_device", "to_device",
            "fleet_node_init", "draw_slot_noise", "draw_fleet_noise",
-           "seeker_fleet_simulate", "wire_bytes_exact"]
+           "fleet_telemetry_spec", "seeker_fleet_simulate",
+           "seeker_fleet_simulate_streamed", "wire_bytes_exact"]
 
-N_DECISIONS = DEFER + 1   # D0..D4 + DEFER: bins of the fleet histogram
 NOISE_KEYS = ("u", "dirs", "radii_u", "latent")
 LATENT = 16
-
-# engine keyword of each lane not registered yet -> the ROADMAP item that
-# ports it
-_UNPORTED_LANES = {
-    "task": "Queue 1 item 6, the task lane",
-    "telemetry": "Queue 1 items 6 and 10, the telemetry lane",
-}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -108,6 +122,80 @@ def _tree_map(fn, *trees):
     if isinstance(t0, dict):
         return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
     return fn(*trees)
+
+
+def _active_lanes(intermittent: IntermittentConfig | None = None,
+                  task: TaskLaneConfig | None = None,
+                  brownout: BrownoutConfig | None = None) -> frozenset:
+    """The run's active-lane tags; ``task:K`` carries the task count, so
+    pure functions of the set (the telemetry spec) can size per-task
+    lanes."""
+    active = set()
+    if brownout is not None:
+        active.add("brownout")
+    if intermittent is not None:
+        active.add("intermittent")
+    if task is not None:
+        active.update({"task", f"task:{task.n_tasks}"})
+    return frozenset(active)
+
+
+def fleet_telemetry_spec(intermittent: bool = False,
+                         n_tasks: int = 0) -> MetricsSpec:
+    """The fleet's registry lanes, the union of the lanes each registered
+    :class:`~repro_torch.serving.fleet_lanes.FleetLane` owns: the node lane
+    ``fleet.wire_bytes``, ``fleet.completed``, ``fleet.alive_slots``,
+    ``fleet.stored_uj`` and ``fleet.decisions``; brown-out
+    ``fleet.brownout_*``; the intermittent lane ``fleet.it_*``; the task
+    lane ``fleet.task_completed``.  All int32.  Memoized on the lane set,
+    so equal lane sets return the same object."""
+    active = set()
+    if intermittent:
+        active.add("intermittent")
+    if n_tasks:
+        active.update({"task", f"task:{n_tasks}"})
+    return _fleet_telemetry_spec_cached(frozenset(active))
+
+
+@functools.lru_cache(maxsize=8)
+def _fleet_telemetry_spec_cached(active: frozenset) -> MetricsSpec:
+    return spec_union(fleet_telemetry_lanes(active))
+
+
+def _resolve_telemetry(telemetry, intermittent: IntermittentConfig | None,
+                       task: TaskLaneConfig | None = None
+                       ) -> MetricsSpec | None:
+    """``True``: the registry's lanes for this run's lanes; a
+    :class:`MetricsSpec` passes through; ``None`` (or ``False``) is off."""
+    if telemetry is None or telemetry is False:
+        return None
+    if telemetry is True:
+        return fleet_telemetry_spec(intermittent is not None,
+                                    task.n_tasks if task is not None else 0)
+    if not isinstance(telemetry, MetricsSpec):
+        raise TypeError(f"telemetry must be None/True/MetricsSpec, "
+                        f"got {type(telemetry).__name__}")
+    return telemetry
+
+
+def _update_fleet_lanes(spec: MetricsSpec, metrics: dict, out_trace: dict,
+                        exo_alive_t: torch.Tensor, active: frozenset,
+                        tasks: torch.Tensor | None = None,
+                        stack_counters: bool = True) -> dict:
+    """Advance every registry lane by one slot: each active lane's
+    ``telemetry_update`` folded over the metrics, from the slot's masked
+    trace (the values the aggregates reduce).  With ``stack_counters`` the
+    lanes' counters are collected and added in one stacked reduction
+    (:func:`repro_torch.obs.counters_add`), bit for bit the lane-by-lane
+    fold."""
+    pending = [] if stack_counters else None
+    m = metrics
+    for ln in FLEET_LANES:
+        if ln.telemetry_update is not None and ln.active(active):
+            m = ln.telemetry_update(spec, m, out_trace,
+                                    exo_alive_t=exo_alive_t, active=active,
+                                    tasks=tasks, counters=pending)
+    return m if pending is None else counters_add(spec, m, pending)
 
 
 def fleet_node_init(n_nodes: int, predictor_window: int = 8,
@@ -238,25 +326,88 @@ def _validate_intermittent_args(intermittent, intermittent_state0,
                              f"nodes, fleet has {n}")
 
 
-def _slot_body(state, it, win, harv, nz, slot, *, signatures, qp, qa,
-               host_params, gen_params, aac_table, costs, quant_bits, k_max,
-               m_samples, corr_threshold, har_cfg, strict, intermittent,
-               reserve_uj):
+def _resolve_tasks(tasks, task: TaskLaneConfig | None, n: int, dev
+                   ) -> tuple[torch.Tensor | None, TaskLaneConfig | None]:
+    """The task lane's (N,) int32 ids and config: ``task`` alone takes the
+    round-robin :func:`fleet_task_assignment`, ``tasks`` alone the default
+    two-task :class:`TaskLaneConfig`; ids are checked against the task
+    count."""
+    if tasks is None and task is None:
+        return None, None
+    if task is None:
+        task = TaskLaneConfig()
+    if tasks is None:
+        tasks = fleet_task_assignment(n, task.n_tasks, dev)
+    tasks = to_device(tasks, dev, torch.int32)
+    if tuple(tasks.shape) != (n,):
+        raise ValueError(f"tasks must be (N,)=({n},) per-node task ids, "
+                         f"got {tuple(tasks.shape)}")
+    lo, hi = int(tasks.min()), int(tasks.max())
+    if lo < 0 or hi >= task.n_tasks:
+        raise ValueError(
+            f"tasks ids span [{lo}, {hi}] but the TaskLaneConfig declares "
+            f"{task.n_tasks} tasks {task.names}")
+    return tasks, task
+
+
+def _resolve_task_host(task: TaskLaneConfig | None, host_params):
+    """With ``per_task_host``, ``host_params`` must be one tree per task;
+    they stay a tuple, and each task's nodes run through their own."""
+    if task is None or not task.per_task_host:
+        return host_params
+    if not isinstance(host_params, (tuple, list)):
+        raise ValueError(
+            f"per_task_host=True needs host_params as a sequence of "
+            f"{task.n_tasks} per-task param trees "
+            f"(one per {task.names}), got {type(host_params).__name__}")
+    if len(host_params) != task.n_tasks:
+        raise ValueError(
+            f"per_task_host=True needs {task.n_tasks} host param trees "
+            f"for tasks {task.names}, got {len(host_params)}")
+    return tuple(host_params)
+
+
+def _host_logits(out, nz, host_idx, *, host_params, gen_params, t):
+    """Host logits of a block: one :func:`seeker_host_step` over every
+    node, or, with per-task host weights (``host_idx``: each task's node
+    indices in the block), one per task on its nodes, scattered back."""
+    if host_idx is None:
+        return seeker_host_step(out, nz["dirs"], nz["radii_u"], nz["latent"],
+                                host_params=host_params,
+                                gen_params=gen_params, t=t)
+    sensor = out._replace(state=None)
+    logits = torch.zeros_like(out.logits)
+    for params, idx in zip(host_params, host_idx):
+        if idx.numel() == 0:
+            continue
+        part = seeker_host_step(
+            _tree_map(lambda x: x[idx], sensor), nz["dirs"][idx],
+            nz["radii_u"][idx], nz["latent"][idx], host_params=params,
+            gen_params=gen_params, t=t)
+        logits = logits.index_copy(0, idx, part)
+    return logits
+
+
+def _slot_body(state, it, win, harv, nz, slot, cost_scale, host_idx, *,
+               signatures, qp, qa, host_params, gen_params, aac_table, costs,
+               quant_bits, k_max, m_samples, corr_threshold, har_cfg, strict,
+               intermittent, reserve_uj):
     """The slot for one block of nodes: correlation, sensor step, the
-    intermittent lane (when on), host."""
+    intermittent lane (when on), host.  ``cost_scale`` is the block's task
+    lane scale (or None)."""
     corr = signature_corr_op(win, signatures)                 # (B, L)
     out = seeker_sensor_step_given_corr(
         win, state, harv, corr, nz["u"], qp=qp, aac_table=aac_table,
         costs=costs, k_max=k_max, m_samples=m_samples,
         quant_bits=quant_bits, corr_threshold=corr_threshold,
-        strict_energy=strict)
+        strict_energy=strict, cost_scale=cost_scale)
     lane_trace, new_it = {}, None
     if intermittent is not None:
         # the lane overrides the slots it engages, after the ladder
         lane = intermittent_lane_step(
             win, state, harv, out.decision, it, slot, qp=qp, qa=qa,
             har_cfg=har_cfg, costs=costs, quant_bits=quant_bits,
-            cfg=intermittent, reserve_uj=reserve_uj)
+            cfg=intermittent, reserve_uj=reserve_uj, cost_scale=cost_scale)
         eng = lane.engaged
         # label -1 on engaged slots: their one-hot host logits are zeros,
         # and the lane's result is scored through the it_* traces
@@ -275,35 +426,69 @@ def _slot_body(state, it, win, harv, nz, slot, *, signatures, qp, qa,
         lane_trace = {"it_emit": lane.emit, "it_label": lane.emit_label,
                       "it_conf": lane.emit_conf, "it_src": lane.emit_src,
                       "it_stage": lane.emit_stage}
-    logits = seeker_host_step(out, nz["dirs"], nz["radii_u"], nz["latent"],
-                              host_params=host_params, gen_params=gen_params,
-                              t=win.shape[-2])
+    logits = _host_logits(out, nz, host_idx, host_params=host_params,
+                          gen_params=gen_params, t=win.shape[-2])
     return out.state, new_it, {"decisions": out.decision,
                                "payload_bytes": out.payload_bytes,
                                "k_trace": out.coreset_k, "logits": logits,
                                **lane_trace}
 
 
+def _label_scores(traces: dict, labels: torch.Tensor, per_node: bool,
+                  intermittent: IntermittentConfig | None, slot0: int,
+                  tasks: torch.Tensor | None,
+                  task: TaskLaneConfig | None) -> dict:
+    """The counts scored against labels: ``correct`` and, with the
+    intermittent lane, ``correct_ladder`` and ``it_correct_*`` (each lane
+    emission against the label of its source slot ``it_src``; one from
+    before ``slot0`` is not scored); with the task lane ``correct_by_task``.
+    The streamed driver calls it once over the concatenated traces."""
+    act, dec = traces["alive"], traces["decisions"]
+    sent = _completed(dec, act, intermittent is not None)
+    ok = ((traces["preds"] == labels) if per_node
+          else (traces["preds"] == labels[:, None]))
+    by_task = (None if task is None else functools.partial(
+        categorical_counts, tasks[None, :].expand(act.shape), task.n_tasks))
+    if intermittent is None:
+        out = {"correct": (ok & sent).sum()}
+        if by_task is not None:
+            out["correct_by_task"] = by_task(ok & sent)
+        return out
+    rel = traces["it_src"] - slot0
+    valid = (traces["it_emit"] > 0) & act & (rel >= 0)
+    rel_c = rel.clamp(0, dec.shape[0] - 1).long()
+    lab = torch.gather(labels, 0, rel_c) if per_node else labels[rel_c]
+    it_ok = (traces["it_label"] == lab) & valid
+    parts = {"correct_ladder": ok & sent & (dec <= D4_SAMPLING),
+             "it_correct_full": it_ok & (traces["it_emit"] == 2),
+             "it_correct_early": it_ok & (traces["it_emit"] == 1)}
+    out = {k: v.sum() for k, v in parts.items()}
+    out["correct"] = (out["correct_ladder"] + out["it_correct_full"]
+                      + out["it_correct_early"])
+    if by_task is not None:
+        out["correct_by_task"] = sum(by_task(v) for v in parts.values())
+    return out
+
+
 def _fleet_aggregates(traces: dict, exo_alive: torch.Tensor, labels,
                       per_node: bool,
                       intermittent: IntermittentConfig | None,
-                      slot0: int) -> dict:
+                      slot0: int, tasks: torch.Tensor | None = None,
+                      task: TaskLaneConfig | None = None) -> dict:
     """Masked fleet aggregates from (S, N) traces.  The activity mask is
     the emitted alive lane (exogenous and not browned out); ``exo_alive``
     is the exogenous trace alone, which counts the slots the brown-out
     hysteresis took.
 
-    With the intermittent lane a D6 suspension is no completion, the
-    histogram has the 9 codes, and each lane emission is scored against
-    the label of its source slot (``it_src``; emissions of a window from
-    before ``slot0`` are not scored)."""
+    With the intermittent lane a D6 suspension is no completion and the
+    histogram has the 9 codes.  With the task lane the completions and
+    misses (an alive slot that put nothing on the wire missed its
+    deadline) split per task id."""
     act = traces["alive"]
     dec = traces["decisions"]
-    sent = (dec != DEFER) & act
-    n_bins = N_DECISIONS
-    if intermittent is not None:
-        sent = sent & (dec != D6_PARTIAL)
-        n_bins = N_INTERMITTENT_DECISIONS
+    sent = _completed(dec, act, intermittent is not None)
+    n_bins = (N_DECISIONS if intermittent is None
+              else N_INTERMITTENT_DECISIONS)
     payload = traces["payload_bytes"]
     aggs = {
         "bytes_on_wire": torch.where(act, payload, 0.0).sum(),
@@ -321,23 +506,15 @@ def _fleet_aggregates(traces: dict, exo_alive: torch.Tensor, labels,
         emit = traces["it_emit"]
         aggs["it_full"] = ((emit == 2) & act).sum()
         aggs["it_early"] = ((emit == 1) & act).sum()
-    if labels is None:
-        return aggs
-    preds = torch.argmax(traces["logits"], dim=-1)
-    ok = (preds == labels) if per_node else (preds == labels[:, None])
-    if intermittent is None:
-        aggs["correct"] = (ok & sent).sum()
-        return aggs
-    rel = traces["it_src"] - slot0
-    valid = (traces["it_emit"] > 0) & act & (rel >= 0)
-    rel_c = rel.clamp(0, dec.shape[0] - 1).long()
-    lab = torch.gather(labels, 0, rel_c) if per_node else labels[rel_c]
-    it_ok = (traces["it_label"] == lab) & valid
-    aggs["correct_ladder"] = (ok & sent & (dec <= D4_SAMPLING)).sum()
-    aggs["it_correct_full"] = (it_ok & (traces["it_emit"] == 2)).sum()
-    aggs["it_correct_early"] = (it_ok & (traces["it_emit"] == 1)).sum()
-    aggs["correct"] = (aggs["correct_ladder"] + aggs["it_correct_full"]
-                       + aggs["it_correct_early"])
+    if task is not None:
+        tasks_b = tasks[None, :].expand(act.shape)
+        aggs["completed_by_task"] = categorical_counts(tasks_b, task.n_tasks,
+                                                       sent)
+        aggs["deadline_miss_by_task"] = categorical_counts(
+            tasks_b, task.n_tasks, act & ~sent)
+    if labels is not None:
+        aggs.update(_label_scores(traces, labels, per_node, intermittent,
+                                  slot0, tasks, task))
     return aggs
 
 
@@ -357,7 +534,8 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
                           intermittent: IntermittentConfig | None = None,
                           intermittent_state0: IntermittentState | None = None,
                           aux_params: dict | None = None, slot0: int = 0,
-                          task=None, telemetry=None,
+                          telemetry=None, telemetry_state0: dict | None = None,
+                          tasks=None, task: TaskLaneConfig | None = None,
                           node_block: int | None = None, device=None):
     """Simulate N independent Seeker nodes over S time slots.
 
@@ -382,13 +560,22 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
             ``aux_params`` (:func:`repro_torch.models.har.har_aux_init`).
             ``intermittent_state0`` resumes a stacked lane state and
             ``slot0`` is the global index of this run's first slot.
+        telemetry: ``True`` (the lanes of :func:`fleet_telemetry_spec` for
+            this run's lanes) or a :class:`repro_torch.obs.MetricsSpec`:
+            the registry lanes come back under ``res["telemetry"]`` (int32
+            tensors) with ``res["telemetry_spec"]``.  ``telemetry_state0``
+            (a previous run's ``res["telemetry"]``) is merged in after the
+            run (:func:`repro_torch.obs.metrics_merge`).
+        tasks: optional (N,) int32 task ids; ``task`` the
+            :class:`repro_torch.serving.fleet_lanes.TaskLaneConfig` (either
+            alone takes the other's default: round-robin ids, or the
+            two-task HAR and bearing config).  The task's ``cost_scale``
+            scales each node's ladder and lane costs; with
+            ``per_task_host`` ``host_params`` is one tree per task.
         node_block: run each slot in node blocks of this size (bounds the
             slot's working memory; more kernel launches per slot).
         device: ``None`` is CUDA (raises without it); ``"cpu"`` runs the
             kernels' plain versions.
-
-    ``task`` and ``telemetry`` are the JAX engine's lanes not ported yet:
-    anything but ``None`` raises ``NotImplementedError``.
 
     Returns a dict of time-major (S, N) traces — ``decisions``,
     ``payload_bytes``, ``stored_uj``, ``k_trace``, ``logits`` (S, N, L),
@@ -404,13 +591,10 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
     ``it_src`` and ``it_stage``, the counters ``it_full`` and ``it_early``
     (with labels ``correct_ladder``, ``it_correct_full`` and
     ``it_correct_early``; ``correct`` is then their sum) and
-    ``final_intermittent``.
+    ``final_intermittent``.  With the task lane ``task_names``, ``tasks``,
+    ``completed_by_task`` and ``deadline_miss_by_task`` (with labels
+    ``correct_by_task`` and ``accuracy_by_task``).
     """
-    for name, value in (("task", task), ("telemetry", telemetry)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported to repro_torch yet (ROADMAP "
-                f"{_UNPORTED_LANES[name]}); pass None")
     dev = resolve_device(device)
     costs = costs or EnergyCosts()
     harvest = to_device(harvest, dev, torch.float32)
@@ -445,13 +629,19 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
                              f"{state.stored_uj.shape[0]} nodes, fleet has {n}")
     _validate_intermittent_args(intermittent, intermittent_state0,
                                 aux_params, n)
+    tasks, task = _resolve_tasks(tasks, task, n, dev)
+    host_params = _resolve_task_host(task, host_params)
+    tel_spec = _resolve_telemetry(telemetry, intermittent, task)
+    active = _active_lanes(intermittent, task, brownout)
     it = None
     if intermittent is not None:
         it = (intermittent_fleet_init(n, har_cfg, dev)
               if intermittent_state0 is None
               else to_device(intermittent_state0, dev))
     carry = FleetCarry(
-        node=state, intermittent=it, telemetry=None,
+        node=state, intermittent=it,
+        # the run counts a delta from zero; telemetry_state0 is merged after
+        telemetry=None if tel_spec is None else metrics_init(tel_spec, dev),
         brownout=_resolve_brownout0(brownout_state0, state, brownout, n))
     if noise is not None:
         noise = _check_noise(noise, s, n, t, c, dev)
@@ -462,12 +652,23 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
             raise ValueError(f"generator is on {generator.device}, the run "
                              f"on {dev}")
     block = n if node_block is None else max(1, min(node_block, n))
+    blocks = [slice(lo, lo + block) for lo in range(0, n, block)]
+    # the task lane's per-block constants, made once per run
+    scale = (None if task is None else torch.tensor(
+        task.cost_scale, dtype=torch.float32, device=dev)[tasks.long()])
+    host_idx = [None] * len(blocks)
+    if task is not None and task.per_task_host:
+        host_params = tuple(to_device(p, dev) for p in host_params)
+        host_idx = [[torch.nonzero(tasks[sl] == k).flatten()
+                     for k in range(task.n_tasks)] for sl in blocks]
+    else:
+        host_params = to_device(host_params, dev)
     params = dict(
         signatures=to_device(signatures, dev, torch.float32).contiguous(),
         qp=quantize_params(to_device(qdnn_params, dev), quant_bits),
         qa=(None if intermittent is None else
             quantize_params(to_device(aux_params, dev), quant_bits)),
-        host_params=to_device(host_params, dev),
+        host_params=host_params,
         gen_params=to_device(gen_params, dev),
         aac_table=None if aac_table is None else to_device(aac_table, dev),
         costs=costs, quant_bits=quant_bits, k_max=k_max,
@@ -489,14 +690,12 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
         browned = carry.brownout
         # a node runs when its trace says so and its supercap allows
         alive_eff = alive_t & ~browned if brownout is not None else alive_t
-        parts = []
-        for lo in range(0, n, block):
-            sl = slice(lo, lo + block)
-            parts.append(_slot_body(
-                _tree_map(lambda x: x[sl], carry.node),
-                _tree_map(lambda x: x[sl], carry.intermittent), win_t[sl],
-                harv_t[sl], {k: v[sl] for k, v in nz.items()}, slot0 + si,
-                **params))
+        parts = [_slot_body(
+            _tree_map(lambda x: x[sl], carry.node),
+            _tree_map(lambda x: x[sl], carry.intermittent), win_t[sl],
+            harv_t[sl], {k: v[sl] for k, v in nz.items()}, slot0 + si,
+            None if scale is None else scale[sl], idx, **params)
+            for sl, idx in zip(blocks, host_idx)]
         new = carry._replace(
             node=_tree_map(lambda *xs: torch.cat(xs), *[p[0] for p in parts]),
             intermittent=_tree_map(lambda *xs: torch.cat(xs),
@@ -526,7 +725,6 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
             next_browned = torch.where(
                 alive_t, torch.where(browned, stored < brownout.restart_uj,
                                      stored < brownout.off_uj), browned)
-        carry = new._replace(node=node, brownout=next_browned)
         out_t = {
             "decisions": torch.where(alive_eff, trace["decisions"], DEFER),
             "payload_bytes": torch.where(alive_eff, trace["payload_bytes"],
@@ -544,16 +742,17 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
             out_t.update({k: trace[k] for k in ("it_label", "it_conf",
                                                  "it_src", "it_stage")})
             out_t["it_emit"] = torch.where(alive_eff, trace["it_emit"], 0)
+        # telemetry: a fleet-level accumulator, never frozen per node
+        carry = new._replace(
+            node=node, brownout=next_browned,
+            telemetry=None if tel_spec is None else _update_fleet_lanes(
+                tel_spec, carry.telemetry, out_t, alive_t, active, tasks))
         per_slot.append(out_t)
     traces = {k: torch.stack([p[k] for p in per_slot]) for k in per_slot[0]}
     traces["preds"] = torch.argmax(traces["logits"], dim=-1)
 
     aggs = _fleet_aggregates(traces, exo_alive.T, labels, per_node_labels,
-                             intermittent, slot0)
-    lane_args = {"alive": alive, "brownout": brownout,
-                 "intermittent": intermittent}
-    active = frozenset(ln.name for ln in FLEET_LANES
-                       if lane_args.get(ln.config_kwarg) is not None)
+                             intermittent, slot0, tasks, task)
     out = {k: traces[k] for k in fleet_trace_keys(active)}
     out.update(aggs)
     out.update(
@@ -564,9 +763,152 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
         final_state=carry.node, final_brownout=carry.brownout)
     if intermittent is not None:
         out["final_intermittent"] = carry.intermittent
+    if tel_spec is not None:
+        tel0 = (None if telemetry_state0 is None
+                else to_device(telemetry_state0, dev, torch.int32))
+        out["telemetry"] = metrics_merge(tel_spec, tel0, carry.telemetry)
+        out["telemetry_spec"] = tel_spec
     if labels is not None:
         out["fleet_accuracy"] = aggs["correct"] / torch.clamp(
             aggs["completed"], min=1)
+    if task is not None:
+        out["task_names"] = task.names
+        out["tasks"] = tasks
+        if labels is not None:
+            out["accuracy_by_task"] = aggs["correct_by_task"] / torch.clamp(
+                aggs["completed_by_task"], min=1)
+    return out
+
+
+def seeker_fleet_simulate_streamed(
+        windows, harvest, *, chunk: int,
+        generator: torch.Generator | None = None, noise: dict | None = None,
+        state0: SeekerNodeState | None = None, labels=None, alive=None,
+        brownout: BrownoutConfig | None = None, brownout_state0=None,
+        intermittent: IntermittentConfig | None = None,
+        intermittent_state0: IntermittentState | None = None,
+        aux_params: dict | None = None, telemetry=None,
+        telemetry_state0: dict | None = None, tasks=None,
+        task: TaskLaneConfig | None = None, mesh=None, device=None, **kw):
+    """Run the fleet in segments of ``chunk`` slots instead of holding the
+    whole window stream on the device.
+
+    Each segment runs through :func:`seeker_fleet_simulate` with the
+    previous segment's ``final_state``, ``final_brownout``,
+    ``final_intermittent`` (at its global ``slot0``) and ``telemetry``, so
+    the chain is bitwise one long run, while only one (N, chunk, T, C)
+    segment of windows is on the device.
+
+    Args (beyond the engine's; ``kw`` passes the model and its knobs on):
+        windows: the stream source: an array ((S, T, C) shared or
+            (N, S, T, C) per node; the driver slices it) or a callable
+            ``windows(start, stop)`` returning one segment.
+        chunk: slots per segment (the last one may be shorter).
+        generator: one ``torch.Generator`` handed from segment to segment,
+            so the draws go on slot by slot as in one long run (default
+            ``manual_seed(0)`` on ``device``); or ``noise``, pre-drawn
+            (S, N, ...) tensors sliced per segment.
+        mesh: the sharded driver is not ported; anything but ``None``
+            raises ``NotImplementedError``.
+
+    Returns the engine's dict: traces concatenated over time, the counters
+    the lane registry names summed exactly (``bytes_on_wire_exact`` in
+    int64), ``bytes_on_wire`` summed per segment, the label-scored counts
+    (``correct``, ``it_correct_*``, ``correct_by_task``) rescored over the
+    concatenated traces (a segment cannot see the labels of windows caught
+    before it), the fractions recomputed, and ``n_chunks``.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported: the sharded driver waits for ROADMAP "
+            "Queue 1 item 11; pass mesh=None")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    dev = resolve_device(device)
+    harvest = to_device(harvest, dev, torch.float32)
+    n, s = harvest.shape
+    if s < 1:
+        raise ValueError(f"cannot stream an empty deployment: harvest is "
+                         f"(N, S)=({n}, {s}); S must be >= 1 slot")
+    if callable(windows):
+        window_fn = windows
+    else:
+        arr = windows if isinstance(windows, torch.Tensor) else np.asarray(
+            windows)
+        if arr.ndim == 3:
+            window_fn = lambda a, b: arr[a:b]                 # noqa: E731
+        else:
+            window_fn = lambda a, b: arr[:, a:b]              # noqa: E731
+    labels_full = None if labels is None else to_device(labels, dev,
+                                                        torch.int64)
+    alive_full = None if alive is None else _resolve_alive(alive, n, s, dev)
+    tasks, task = _resolve_tasks(tasks, task, n, dev)
+    tel_spec = _resolve_telemetry(telemetry, intermittent, task)
+    if noise is None and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    active = _active_lanes(intermittent, task, brownout)
+    trace_keys = fleet_trace_keys(active)
+    counter_keys = fleet_counter_keys(active)
+
+    state, browned, it_state = state0, brownout_state0, intermittent_state0
+    tel_state = telemetry_state0
+    parts, counters, res = [], {}, None
+    bytes_on_wire = torch.zeros((), dtype=torch.float32, device=dev)
+    bytes_exact = torch.zeros((), dtype=torch.int64, device=dev)
+    for start in range(0, s, chunk):
+        stop = min(start + chunk, s)
+        seg = dict(kw, brownout=brownout, intermittent=intermittent,
+                   aux_params=aux_params, tasks=tasks, task=task,
+                   telemetry=tel_spec, telemetry_state0=tel_state,
+                   state0=state, brownout_state0=browned,
+                   intermittent_state0=it_state, slot0=start, device=dev)
+        if noise is not None:
+            seg["noise"] = {k: v[start:stop] for k, v in noise.items()}
+        else:
+            seg["generator"] = generator
+        if labels_full is not None:
+            seg["labels"] = labels_full[start:stop]
+        if alive_full is not None:
+            seg["alive"] = alive_full[:, start:stop]
+        with obs_trace.span("fleet.segment", cat="fleet",
+                            args={"start": start, "stop": stop},
+                            flush=lambda: res["decisions"]):
+            res = seeker_fleet_simulate(window_fn(start, stop),
+                                        harvest[:, start:stop], **seg)
+        state, browned = res["final_state"], res["final_brownout"]
+        it_state = res.get("final_intermittent")
+        tel_state = res.get("telemetry")
+        parts.append({k: res[k] for k in trace_keys})
+        for k in counter_keys:
+            if k in res:
+                counters[k] = counters.get(k, 0) + res[k]
+        bytes_on_wire = bytes_on_wire + res["bytes_on_wire"]
+        bytes_exact = bytes_exact + res["bytes_on_wire_exact"]
+
+    out = {k: torch.cat([p[k] for p in parts]) for k in trace_keys}
+    out.update(counters)
+    out.update(
+        bytes_on_wire=bytes_on_wire, bytes_on_wire_exact=bytes_exact,
+        completed_frac=counters["completed"] / torch.clamp(
+            counters["alive_slots"], min=1),
+        raw_bytes_per_window=res["raw_bytes_per_window"],
+        final_state=state, final_brownout=browned, n_chunks=-(-s // chunk))
+    if intermittent is not None:
+        out["final_intermittent"] = it_state
+    if tel_spec is not None:
+        out["telemetry"] = tel_state
+        out["telemetry_spec"] = tel_spec
+    if task is not None:
+        out["task_names"] = task.names
+        out["tasks"] = tasks
+    if labels_full is not None:
+        out.update(_label_scores(out, labels_full, labels_full.ndim == 2,
+                                 intermittent, 0, tasks, task))
+        out["fleet_accuracy"] = out["correct"] / torch.clamp(
+            counters["completed"], min=1)
+        if task is not None:
+            out["accuracy_by_task"] = out["correct_by_task"] / torch.clamp(
+                counters["completed_by_task"], min=1)
     return out
 
 

@@ -83,6 +83,33 @@ def test_choose_decision_matches_jax(strict, allow_full_dnn):
     assert len(set(got.decision.tolist())) >= 4
 
 
+@pytest.mark.parametrize("strict", [False, True])
+def test_choose_decision_cost_scale_matches_jax(strict):
+    """Per node, ``cost * cost_scale`` is one float32 row of the table: the
+    decisions and spends equal JAX's vmapped ladder exactly."""
+    rng = np.random.default_rng(1)
+    n = 512
+    corr = rng.uniform(0.8, 1.0, n).astype(np.float32)
+    stored = rng.uniform(0.0, 60.0, n).astype(np.float32)
+    forecast = rng.uniform(0.0, 10.0, n).astype(np.float32)
+    harv = rng.uniform(0.0, 20.0, n).astype(np.float32)
+    scale = rng.choice([1.0, ten.BEARING_COST_SCALE, 0.7],
+                       n).astype(np.float32)
+    want = jax.vmap(lambda a, b, c, h, sc: jdec.choose_decision(
+        a, b, c, jen.EnergyCosts(), harvested_uj=h if strict else None,
+        cost_scale=sc))(*(jnp.asarray(x) for x in (corr, stored, forecast,
+                                                   harv, scale)))
+    t = torch.as_tensor
+    got = tdec.choose_decision(t(corr), t(stored), t(forecast),
+                               ten.EnergyCosts(),
+                               harvested_uj=t(harv) if strict else None,
+                               cost_scale=t(scale))
+    np.testing.assert_array_equal(got.decision.numpy(),
+                                  np.asarray(want.decision))
+    np.testing.assert_array_equal(got.spend.numpy(), np.asarray(want.spend))
+    assert len(set(got.decision.tolist())) >= 4
+
+
 def test_cost_tables_match_jax():
     jc, tc = jen.EnergyCosts(), ten.EnergyCosts()
     assert tc.decision_costs() == jc.decision_costs()

@@ -248,10 +248,28 @@ def test_default_device_is_cuda_and_never_falls_back(setup, monkeypatch):
             np.asarray(d["wins"]), np.asarray(d["harvest"]), **d["port"])
 
 
-@pytest.mark.parametrize("lane", ["task", "telemetry"])
-def test_unported_lanes_raise(setup, lane):
+@pytest.mark.parametrize("lane", ["task", "telemetry", "mesh"])
+def test_task_and_telemetry_run_and_mesh_raises(setup, lane):
+    """The task and telemetry lanes run (their parity with JAX is
+    tests/test_torch_tasks.py's); the sharded driver is not ported, so the
+    streamed driver's ``mesh=`` raises, naming its ROADMAP item."""
     d = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        repro_torch.seeker_fleet_simulate(
-            np.asarray(d["wins"]), np.asarray(d["harvest"]), device="cpu",
-            **{lane: object()}, **d["port"])
+    args = (np.asarray(d["wins"]), np.asarray(d["harvest"]))
+    if lane == "mesh":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 11"):
+            repro_torch.seeker_fleet_simulate_streamed(
+                *args, chunk=2, mesh=object(), device="cpu", **d["port"])
+        return
+    value = (repro_torch.TaskLaneConfig() if lane == "task" else True)
+    res = repro_torch.seeker_fleet_simulate(*args, device="cpu",
+                                            noise=d["noise"],
+                                            **{lane: value}, **d["port"])
+    bare = repro_torch.seeker_fleet_simulate(*args, device="cpu",
+                                             noise=d["noise"], **d["port"])
+    if lane == "task":
+        assert int(res["completed_by_task"].sum()) == int(res["completed"])
+    else:
+        assert torch.equal(res["telemetry"]["fleet.decisions"],
+                           res["decision_histogram"].to(torch.int32))
+        assert torch.equal(res["decisions"], bare["decisions"])

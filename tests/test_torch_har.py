@@ -100,6 +100,30 @@ def test_har_stream_shapes_and_dwell():
     assert tsens.har_window(g, 3).shape == (60, 3)
 
 
+def test_bearing_streams_match_jax_in_distribution():
+    """Drawn from a ``torch.Generator``, the bearing windows match JAX's in
+    distribution: per class, the mean of the windows' standard deviation
+    and of their peak within 3% (3000 windows, about 300 a class)."""
+    from repro.data.sensors import bearing_dataset
+    w, lab = bearing_dataset(jax.random.PRNGKey(0), 3000)
+    w, lab = np.asarray(w), np.asarray(lab)
+    pw, plab = tsens.bearing_dataset(torch.Generator().manual_seed(0),
+                                        3000)
+    pw, plab = pw.numpy(), plab.numpy()
+    assert pw.shape == w.shape and set(plab.tolist()) == set(range(10))
+    for c in range(10):
+        for stat in (lambda x: x.std(axis=1), lambda x: np.abs(x).max(axis=1)):
+            want, got = stat(w[lab == c]).mean(), stat(pw[plab == c]).mean()
+            assert abs(got - want) <= 0.03 * want, c
+    gen = torch.Generator().manual_seed(1)
+    sw, sl = tsens.bearing_stream(gen, 40, t=HAR.window, streams=3)
+    assert sw.shape == (3, 40, HAR.window, 1) and sl.shape == (3, 40)
+    assert bool((sl[:, :16] == sl[:, :1]).all())          # dwell 16
+    hw, hl = tsens.har_dataset(gen, 5)
+    assert hw.shape == (5, 60, 3) and hl.shape == (5,)
+    assert tsens.bearing_window(gen, 3).shape == (120, 1)
+
+
 def test_signatures_memoize_like_jax():
     """The memoization premise holds for the port's data as for JAX's: a
     window correlates with its own class's signature about as often, and

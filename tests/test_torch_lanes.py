@@ -382,16 +382,19 @@ def test_all_true_alive_and_no_lanes_is_the_bare_engine(scarce):
 
 
 def test_lane_registry_names_the_results(scarce):
-    """Every registered lane's traces, aggregates and resume results are
-    in a run with the lane on, its engine arguments and initializer exist,
-    and a lane that carries state has a FleetCarry field; the task and
-    telemetry lanes are not registered yet."""
+    """Every lane this run turns on has its traces, aggregates and resume
+    results in the run, every registered lane's engine arguments and
+    initializer exist, and a lane that carries state has a FleetCarry
+    field."""
     res = scarce["res"]
     params = inspect.signature(repro_torch.seeker_fleet_simulate).parameters
     names = [ln.name for ln in fleet_lanes.FLEET_LANES]
-    assert names == ["node", "churn", "brownout", "intermittent"]
+    assert names == ["node", "churn", "brownout", "intermittent",
+                     "telemetry", "task"]
+    on = frozenset({"brownout", "intermittent"})
     for ln in fleet_lanes.FLEET_LANES:
-        for key in ln.trace_keys + ln.aggregates + ln.resume_out:
+        for key in ((ln.trace_keys + ln.aggregates + ln.resume_out)
+                    if ln.active(on) else ()):
             assert key in res, (ln.name, key)
         assert set(ln.counter_keys) <= set(ln.aggregates)
         assert set(ln.resume_in) | {ln.config_kwarg} - {None} <= set(params)
