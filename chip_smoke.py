@@ -19,9 +19,13 @@ Phases (any failure exits non-zero and prints no result):
    and ``importance_select`` must be bit-equal to their plain versions in
    every case; ``fake_quant`` must launch exactly one kernel per call, in
    every mode.  Two launches of each kernel on the same input must be
-   bit-identical.  With each kernel's time, the plain version's time, the
-   time of one PyTorch call computing the same function where there is one,
-   and the least time the card could take (its bound);
+   bit-identical.  The bearing config's shapes too: ``signature_corr`` at
+   (3000, 120, 1) against a 10-signature bank, ``kmeans_coreset`` on 3000
+   clouds of (120, 2) with k = 18, ``importance_select`` at (3000, 120, 1)
+   with m = 20, and ``fake_quant`` per channel at 8192 columns.  With each
+   kernel's time, the plain version's time, the time of one PyTorch call
+   computing the same function where there is one, and the least time the
+   card could take (its bound), at the fleet's and the bearing shapes;
 4. fleet: ``repro_torch.seeker_fleet_simulate`` at full HAR width, N=3000
    nodes, S=8 slots, per-node streams, counting each kernel's launches; the
    same run on the CPU through the plain versions, with the same noise,
@@ -48,7 +52,21 @@ Phases (any failure exits non-zero and prints no result):
    with phase 5's lanes, the task lane and telemetry: bitwise equal on the
    card to one materialized run from the same generator seed, with the
    peak device memory of each run and the window bytes each holds;
-8. the kernel table as one JSON line, then the result line.
+8. the host tier at HAR's full width (k=12, m=20), N=3000, S=8, each
+   against a CPU run of the plain versions on the card's own payloads:
+   (a) ``fleet_serve_step`` in queue mode (``HostServeConfig`` batch 256,
+   queue and cache 4096, QoS 4 slots, telemetry), fed phase 5's windows and
+   its emitted alive lane, one ``kmeans_coreset`` launch a slot; (b) an
+   under-provisioned ``host_serve_slot`` (8 batches of 256 a slot, a queue
+   of 8192, QoS 2 slots) on lanes of cluster and sampling entries that
+   re-send a quarter of the previous slot's frames, so that the run holds
+   backlog, deadline misses, overflow drops and cache hits.  QoS counters
+   and telemetry must be exactly the CPU run's, logits within 1e-3, the
+   ensemble's answers equal on at least 99% of nodes; the edge encode's
+   counts exactly equal and its codes within one code; a frame must
+   round-trip exactly; each with ms/slot, device time and launches a slot,
+   and its synchronisations counted by CUDA's sync debug mode;
+9. the kernel table as one JSON line, then the result line.
 """
 import json
 import subprocess
@@ -68,6 +86,10 @@ COMPARE_SLOTS = 8              # slots of the scarce run replayed on the CPU
 MIXED_SLOTS = 32
 STREAM_SLOTS, STREAM_CHUNK = 32, 4
 IMPORTANCE_M = 20              # the HAR sampling points
+HOST_K, HOST_SLOTS = 12, 8     # phase 8: HAR's k, and the slots served
+# configs/seeker_har.py BEARING: 120-sample windows, 1 channel, and
+# SYSTEM.bearing_clusters
+BEARING_T, BEARING_K = 120, 18
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 REPO = Path(__file__).resolve().parent
@@ -295,6 +317,7 @@ def _fake_quant_cases(torch, g, dev, acts, weight):
         ("per channel (960, 128) weights", weight, dict(per_channel=True)),
         ("per channel (2048, 4096)", rnd((2048, 4096)), dict(per_channel=True)),
         ("per channel (33, 70)", rnd((33, 70)), dict(per_channel=True)),
+        ("per channel (256, 8192)", rnd((256, 8192)), dict(per_channel=True)),
     ]
 
 
@@ -326,7 +349,7 @@ def phase_kernels(torch, dev) -> dict:
     labels = torch.randint(0, 12, (N_NODES,), generator=g, device=dev)
     windows = har_windows(g, labels).contiguous()              # (3000, 60, 3)
     sigs = class_signatures(device=dev).contiguous()           # (12, 60, 3)
-    table, extra = {}, {}
+    table, extra, bearing = {}, {}, {}
 
     # --- signature_corr: (3000, 60, 3) x (12, 60, 3) -----------------------
     b, t, c = windows.shape
@@ -347,7 +370,16 @@ def phase_kernels(torch, dev) -> dict:
     torch.testing.assert_close(got_off, want_off, rtol=1e-4, atol=1e-5)
     _same_twice(torch, lambda: ops.signature_corr_op(w_off, s_off))
     corr_err = max(corr_err, float((got_off - want_off).abs().max()))
-    for shape in ((b, l, t, c), (1001, 7, 64, 4), (l, l, t, c)):
+    # the bearing config's 120-sample windows against a 10-signature bank
+    w_brg = torch.randn((N_NODES, BEARING_T, 1), generator=g, device=dev)
+    s_brg = torch.randn((10, BEARING_T, 1), generator=g, device=dev)
+    got_brg = ops.signature_corr_op(w_brg, s_brg)
+    want_brg = ref.signature_corr_ref(w_brg, s_brg)
+    torch.testing.assert_close(got_brg, want_brg, rtol=1e-4, atol=1e-5)
+    _same_twice(torch, lambda: ops.signature_corr_op(w_brg, s_brg))
+    corr_err = max(corr_err, float((got_brg - want_brg).abs().max()))
+    for shape in ((b, l, t, c), (1001, 7, 64, 4), (l, l, t, c),
+                  (N_NODES, 10, BEARING_T, 1)):
         print(f"signature_corr geometry {shape}: "
               f"{ops.signature_corr_geometry(*shape)}")
     # one einsum over operands centred and normalised beforehand computes
@@ -366,6 +398,23 @@ def phase_kernels(torch, dev) -> dict:
         lambda: torch.einsum("btc,ltc->bl", a_op, b_op))
     table["signature_corr"] = dict(max_abs_err=corr_err, bound_ms=bound,
                                    bound_by=by, **times)
+    lb = s_brg.shape[0]
+    wm = w_brg - w_brg.mean(1, keepdim=True)
+    sm = s_brg - s_brg.mean(1, keepdim=True)
+    a_brg, b_brg = wm / wm.norm(dim=1, keepdim=True), sm / sm.norm(
+        dim=1, keepdim=True)
+    bound, by = _bound_ms(4 * (N_NODES * BEARING_T + lb * BEARING_T
+                               + N_NODES * lb),
+                          2 * N_NODES * lb * BEARING_T + 6 * N_NODES
+                          * BEARING_T)
+    times, _ = _timings(
+        torch, lambda: ops.signature_corr_op(w_brg, s_brg),
+        "signature_corr_kernel", lambda: ref.signature_corr_ref(w_brg, s_brg),
+        lambda: torch.einsum("btc,ltc->bl", a_brg, b_brg))
+    bearing["signature_corr"] = dict(
+        shape=[N_NODES, BEARING_T, 1], bank=lb,
+        max_abs_err=float((got_brg - want_brg).abs().max()), bound_ms=bound,
+        bound_by=by, **times)
 
     # --- fake_quant: one slot's three per-node activations, and weights;
     # the whole function (amax, scale, quantize) bit for bit in every mode --
@@ -391,7 +440,7 @@ def phase_kernels(torch, dev) -> dict:
         variants.setdefault(geo.variant, (name, x, kw))
         print(f"fake_quant {name} {kw}: bit-equal at 16, 12 and 8 bits; "
               f"{geo}")
-    assert sorted(variants) == list(range(5)), sorted(variants)
+    assert sorted(variants) == list(range(6)), sorted(variants)
     # one launch per call and no PyTorch op, in every instantiation
     for name, x, kw in variants.values():
         seen = _device_kernels(torch, lambda: ops.fake_quant_op(x, 16, **kw))
@@ -442,6 +491,18 @@ def phase_kernels(torch, dev) -> dict:
           f"{extra['fake_quant']['scale_chain_launches']} kernel launches")
     table["fake_quant"] = dict(max_abs_err=err, bound_ms=bound, bound_by=by,
                                **times)
+    wide = torch.randn((256, 8192), generator=g, device=dev) * 3.0
+    want_wide, _ = _fake_quant_plain(ref, wide, 16, per_channel=True)
+    got_wide = ops.fake_quant_op(wide, 16, per_channel=True)
+    _assert_same_bits(torch, got_wide, want_wide, "fake_quant (256, 8192)")
+    bound, by = _bound_ms(2 * 4 * wide.numel(), 7 * wide.numel())
+    times, _ = _timings(
+        torch, lambda: ops.fake_quant_op(wide, 16, per_channel=True),
+        "fake_quant", lambda: _fake_quant_plain(ref, wide, 16,
+                                                per_channel=True))
+    bearing["fake_quant"] = dict(shape=[256, 8192], per_channel=True,
+                                 max_abs_err=0.0, bound_ms=bound,
+                                 bound_by=by, **times)
 
     # --- kmeans_coreset: the fleet's (3000 * 3, 60, 2) channel clouds -----
     cols = windows.transpose(1, 2)[..., None]                   # (B, C, T, 1)
@@ -450,7 +511,8 @@ def phase_kernels(torch, dev) -> dict:
     err = _check_kmeans(torch, ops, ref, pts, k, iters)
     # off the fleet: the (32, 4) instantiation at the widest cloud, and a
     # ragged block of clouds whose N is not a multiple of the lane group
-    for shape, kk in (((999, 64, 4), 32), ((13, 37, 1), 5)):
+    for shape, kk in (((999, 64, 4), 32), ((13, 37, 1), 5),
+                      ((99, 128, 4), 32), ((77, 65, 2), 7)):
         off = torch.randn(shape, generator=g, device=dev)
         err = max(err, _check_kmeans(torch, ops, ref, off, kk, iters))
         print(f"kmeans_coreset geometry {shape} k={kk}: "
@@ -468,6 +530,27 @@ def phase_kernels(torch, dev) -> dict:
         "kmeans_coreset_kernel", lambda: ref.kmeans_coreset_ref(pts, k, iters))
     table["kmeans_coreset"] = dict(max_abs_err=err, bound_ms=bound,
                                    bound_by=by, **times)
+    # the bearing config: one channel of 120 samples a node, k = 18
+    pts_brg = points_from_window(w_brg.transpose(1, 2)[..., None]).reshape(
+        -1, BEARING_T, 2).contiguous()                  # (3000, 120, 2)
+    err_brg = _check_kmeans(torch, ops, ref, pts_brg, BEARING_K, iters)
+    geo = ops.kmeans_coreset_geometry(*pts_brg.shape, BEARING_K)
+    print(f"kmeans_coreset geometry {tuple(pts_brg.shape)} k={BEARING_K}: "
+          f"{geo}, {geo.waves} wave(s)")
+    nb, n, d = pts_brg.shape
+    kb = BEARING_K
+    flops = ((iters + 1) * nb * n * kb * 3 * d + iters * nb * n * d
+             + iters * nb * kb * d + nb * n)
+    bound, by = _bound_ms(4 * (nb * n * d + nb * kb * d + 2 * nb * kb),
+                          flops)
+    times, _ = _timings(
+        torch, lambda: ops.kmeans_coreset_op(pts_brg, kb, iters),
+        "kmeans_coreset_kernel",
+        lambda: ref.kmeans_coreset_ref(pts_brg, kb, iters))
+    bearing["kmeans_coreset"] = dict(shape=[nb, n, d], k=kb,
+                                     max_abs_err=err_brg, bound_ms=bound,
+                                     bound_by=by, **times)
+    err = max(err, err_brg)
 
     # --- importance_select: indices, values and weights bit for bit, at
     # the HAR windows and off them: the JAX tests' (13, 64, 5), T=37 with
@@ -488,7 +571,12 @@ def phase_kernels(torch, dev) -> dict:
             ("flat (8, 64, 5)", torch.ones((8, 64, 5), device=dev), 8,
              dict(spread=0.0)),
             ("three levels", levels, m, {}),
-            ("three levels spread=0", levels, m, dict(spread=0.0))):
+            ("three levels spread=0", levels, m, dict(spread=0.0)),
+            ("bearing", w_brg, m, {}), ("bearing m=T", w_brg, BEARING_T, {}),
+            ("T=100", torch.randn((50, 100, 3), generator=g, device=dev), m,
+             {}),
+            ("flat T=128", torch.ones((8, 128, 2), device=dev), 8,
+             dict(spread=0.0))):
         got = ops.importance_select_op(x, mm, **kw)
         want = ref.importance_select_ref(x, mm, **kw)
         for part, k_out, p_out in zip(("indices", "values", "weights"), got,
@@ -502,7 +590,7 @@ def phase_kernels(torch, dev) -> dict:
         print(f"importance_select {name} {tuple(x.shape)} m={mm} {kw}: "
               f"indices, values and weights equal; {geo}, "
               f"{geo.waves} wave(s)")
-    assert variants == {0, 1}, variants
+    assert variants == {0, 1, 2, 3}, variants
     # bytes: windows in, indices, values and weights out; operations per
     # sample: the box sum, divide, subtract and abs per channel, the channel
     # and time sums, the blend, m argmax comparisons; 3 per output weight
@@ -520,6 +608,17 @@ def phase_kernels(torch, dev) -> dict:
         torch, lambda: torch.topk(scores, m, dim=-1))
     table["importance_select"] = dict(max_abs_err=err, bound_ms=bound,
                                       bound_by=by, **times)
+    tb, cb = BEARING_T, 1
+    nbytes = 4 * (N_NODES * tb * cb + N_NODES * m * (2 + cb))
+    flops = N_NODES * (tb * cb * (8 + 3) + tb * (cb - 1) + tb + 3 * tb
+                       + m * tb + 3 * m)
+    bound, by = _bound_ms(nbytes, flops)
+    times, _ = _timings(
+        torch, lambda: ops.importance_select_op(w_brg, m),
+        "importance_select", lambda: ref.importance_select_ref(w_brg, m))
+    bearing["importance_select"] = dict(shape=[N_NODES, tb, cb], m=m,
+                                        max_abs_err=0.0, bound_ms=bound,
+                                        bound_by=by, **times)
 
     for name, row in table.items():
         print(f"{name}: device ms: kernel {row['ms']}, plain {row['plain_ms']}"
@@ -527,6 +626,12 @@ def phase_kernels(torch, dev) -> dict:
               f"({row['bound_by']}); per call with launch: "
               f"{extra[name]['call_ms']}; timed by {extra[name]['source']}; "
               f"max_abs_err {row['max_abs_err']:.3g}")
+    for name, row in bearing.items():
+        print(f"{name} at the bearing shape {row['shape']}: device ms: "
+              f"kernel {row['ms']}, plain {row['plain_ms']}, library "
+              f"{row['library_ms']}, bound {row['bound_ms']} "
+              f"({row['bound_by']})")
+    extra["bearing_shapes"] = bearing
     return table, extra
 
 
@@ -755,7 +860,13 @@ def phase_scarce_fleet(torch, dev) -> dict:
           f"{fleet['windows_per_s']:.1f} windows/s on the card; histogram "
           f"D0..D8 {hist.tolist()}; cpu plain run of {cmp} slots "
           f"{cpu_secs:.1f} s")
-    return fleet
+    # what phase 8 serves: the first slots' windows and the engine's
+    # emitted alive lane (brown-outs folded into the churn), kept on the
+    # host so that they do not add to phase 7's peak device memory
+    feed = dict(windows=windows[:, :HOST_SLOTS].cpu(),
+                alive=res["alive"][:HOST_SLOTS].cpu(), params=params,
+                gen_params=inputs["gen_params"])
+    return fleet, feed
 
 
 def phase_task_fleet(torch, dev) -> dict:
@@ -1041,6 +1152,253 @@ _SOURCES = {
 }
 
 
+def _host_cfg(torch, **kw):
+    """Phase 8's server: ``HostServeConfig(channels=3, k=12, m=20, t=60,
+    n_classes=12, n_nodes=3000, batch_size=256, queue_capacity=4096,
+    cache_capacity=4096, qos_slots=4, telemetry=True)``, fields in ``kw``
+    replaced."""
+    from repro_torch.host import HostServeConfig
+    base = dict(channels=3, k=HOST_K, m=IMPORTANCE_M, t=60, n_classes=12,
+                n_nodes=N_NODES, batch_size=256, queue_capacity=4096,
+                cache_capacity=4096, qos_slots=4, telemetry=True)
+    return HostServeConfig(**{**base, **kw})
+
+
+def _host_checks(torch, card_state, card_outs, cpu_state, cpu_outs, cfg,
+                 what: str) -> dict:
+    """A card serve run against the CPU plain run on the same payloads:
+    integer QoS and telemetry exactly equal, logits within 1e-3, the
+    ensemble's answers on at least 99% of nodes."""
+    from repro_torch.host import host_ensemble, host_server_stats
+    card = host_server_stats(card_state, cfg)
+    cpu = host_server_stats(cpu_state, cfg)
+    for key in ("slot", "served", "deadline_misses", "drops_overflow",
+                "backlog", "cache_hits", "cache_misses"):
+        assert card[key] == cpu[key], (what, key, card[key], cpu[key])
+    for name in card_state.metrics:
+        assert torch.equal(card_state.metrics[name].cpu(),
+                           cpu_state.metrics[name]), (what, name)
+    for a, b in zip(card_outs, cpu_outs):
+        for f in ("node_id", "deadline", "cache_hit", "valid"):
+            assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), (what, f)
+    err = max(float((a.logits.cpu() - b.logits).abs().max())
+              for a, b in zip(card_outs, cpu_outs))
+    assert err <= 1e-3, (what, err)
+    ec, ep = host_ensemble(card_state), host_ensemble(cpu_state)
+    agree = {k: float((ec[k].cpu() == ep[k]).float().mean())
+             for k in ("pred_vote", "pred_mean")}
+    assert all(v >= 0.99 for v in agree.values()), (what, agree)
+    assert torch.equal(ec["counts"].cpu(), ep["counts"])
+    # the summed logits: 1e-3 for each payload a node summed (the card adds
+    # a node's rows of one batch in an unspecified order)
+    ens_err = float((card_state.ensemble_logits.cpu()
+                     - cpu_state.ensemble_logits).abs().max())
+    assert ens_err <= 1e-3 * max(1, int(ep["counts"].max())), (what, ens_err)
+    print(f"host serve {what}: QoS and telemetry equal to the CPU plain run "
+          f"({ {k: card[k] for k in ('served', 'deadline_misses', 'drops_overflow', 'backlog', 'cache_hits', 'cache_misses')} }); "
+          f"logits within {err:.3g}, summed logits within {ens_err:.3g}; "
+          f"ensemble agreement {agree}")
+    return dict(stats={k: v for k, v in card.items() if k != "telemetry"},
+                max_logit_err=err, max_ensemble_logit_err=ens_err,
+                ensemble_agreement=agree)
+
+
+def _count_syncs(torch, fn):
+    """``fn()`` under CUDA's synchronisation debug mode: the number of
+    synchronising operations it issued, and its seconds on the host clock
+    (the warnings cost only at the synchronisations)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in seen), secs
+
+
+def phase_host_serve(torch, dev, feed) -> dict:
+    """The host tier at HAR's full width, N=3000, S=8: (a) the fleet's serve
+    step in queue mode, fed phase 5's windows and emitted alive lane; (b) an
+    under-provisioned server (8 batches of 256 a slot) on a lane of cluster
+    and sampling entries that re-sends a quarter of the previous slot's
+    frames.  Each against a CPU run of the plain versions on the card's own
+    payloads."""
+    import dataclasses
+    from repro_torch.configs.seeker_har import HAR
+    from repro_torch.core.coreset import importance_coreset
+    from repro_torch.host import (HostPayload, cluster_entries,
+                                  host_serve_slot, host_server_init,
+                                  sampling_entries, serve_fleet_payloads)
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (encode_wire_samples, fleet_serve_step,
+                                     wire_payload_from_bytes,
+                                     wire_payload_nbytes,
+                                     wire_payload_to_bytes)
+    from repro_torch.serving.edge_host import _edge_encode_coresets
+    from repro_torch.serving.fleet import to_device
+
+    n, s = N_NODES, HOST_SLOTS
+    windows = feed["windows"][:, :s].to(dev).contiguous()    # (N, S, T, C)
+    alive = feed["alive"][:s].to(dev)                        # (S, N)
+    params, gen = feed["params"], feed["gen_params"]
+    cpu_params, cpu_gen = to_device(params, "cpu"), to_device(gen, "cpu")
+    out = {}
+
+    # --- (a) fleet_serve_step, queue mode ----------------------------------
+    cfg_a = _host_cfg(torch)
+
+    def run_a():
+        state, outs, wire_bytes = host_server_init(cfg_a, dev), [], 0
+        for t in range(s):
+            r = fleet_serve_step(
+                windows[:, t], host_params=params, har_cfg=HAR,
+                k=HOST_K, host_state=state, serve_cfg=cfg_a,
+                gen_params=gen, engine_alive=alive[t], device=dev)
+            state = r["host_state"]
+            outs.append(r["slot_output"])
+            wire_bytes += r["wire_bytes"]
+        return state, outs, wire_bytes
+
+    ops.reset_launch_counts()
+    state_a, outs_a, wire_bytes = run_a()
+    torch.cuda.synchronize()
+    launches_a = ops.launch_counts()
+    # the steady state: a second run, timed, its synchronisations counted
+    syncs_a, secs_a = _count_syncs(torch, run_a)
+    want = {"signature_corr": 0, "fake_quant": 0, "kmeans_coreset": s,
+            "importance_select": 0}
+    print(f"host serve (a) launches {launches_a}, expected {want}; "
+          f"synchronisations {syncs_a} in {s} slots")
+    assert launches_a == want, (launches_a, want)
+    frames = int(alive.sum())
+    assert wire_bytes == frames * wire_payload_nbytes(HOST_K, 3), \
+        (wire_bytes, frames)
+    prof_a = _profile(torch, run_a, s, secs_a, "host_serve_fleet")
+
+    # the card's payloads, encoded again (the kernel is bit-identical from
+    # launch to launch), against the plain encode on the CPU, and served
+    # on the CPU
+    cards = [_edge_encode_coresets(windows[:, t], HOST_K) for t in range(s)]
+    frame = wire_payload_to_bytes(cards[0])
+    back = wire_payload_from_bytes(frame)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(cards[0], back))
+    enc = {"counts_equal": True, "c_codes_pm1_share": 0.0,
+           "r_codes_pm1_share": 0.0}
+    for t in range(s):
+        plain = _edge_encode_coresets(windows[:, t].cpu(), HOST_K)
+        assert torch.equal(cards[t].n_codes.cpu(), plain.n_codes), t
+        for f in ("c_codes", "r_codes"):
+            d = (getattr(cards[t], f).cpu().int()
+                 - getattr(plain, f).int()).abs()
+            assert int(d.max()) <= 1, (t, f, int(d.max()))
+            enc[f"{f}_pm1_share"] = max(enc[f"{f}_pm1_share"],
+                                        float((d == 1).float().mean()))
+    print(f"host serve edge encode: counts equal to the CPU plain encode in "
+          f"all {s} slots; share of codes off by one {enc}; a frame of "
+          f"{len(frame)} B round-trips exactly")
+    cpu_state, cpu_outs = host_server_init(cfg_a, "cpu"), []
+    for t in range(s):
+        cpu_state, o = serve_fleet_payloads(
+            cpu_state, type(cards[t])(*(x.cpu() for x in cards[t])),
+            torch.arange(n, dtype=torch.int32), cfg=cfg_a,
+            host_params=cpu_params, gen_params=cpu_gen,
+            mask=alive[t].cpu())
+        cpu_outs.append(o)
+    out["fleet_queue_mode"] = dict(
+        nodes=n, slots=s, frames=frames, wire_bytes=wire_bytes,
+        launches=launches_a, syncs_per_slot=syncs_a / s,
+        ms_per_slot=secs_a / s * 1e3, profile=prof_a, edge_encode=enc,
+        **_host_checks(torch, state_a, outs_a, cpu_state, cpu_outs, cfg_a,
+                       "(a) fleet_serve_step"))
+
+    # --- (b) an under-provisioned server on a mixed, re-sending lane -------
+    # 2048 rows served a slot against about 3750 arrivals; a queue of four
+    # slots' service and deadlines two slots out, so the backlog outgrows
+    # the deadlines (misses) and then the ring (overflow drops)
+    cfg_b = _host_cfg(torch, batches_per_slot=8, queue_capacity=8192,
+                      qos_slots=2)
+    resend = torch.arange(0, n, 4, device=dev)               # a fixed quarter
+    half = n // 2
+    g = torch.Generator(device=dev).manual_seed(8)
+    u = torch.rand((s, n - half, 60), generator=g, device=dev) * (
+        1.0 - 1e-9) + 1e-9
+
+    def lane(t, prev):
+        """Slot t's lane: the quarter re-sent from slot t-1 first, then the
+        first half of the nodes' cluster frames and the rest's sampling
+        frames; every fresh frame is sent."""
+        w = windows[:, t]
+        ce = cluster_entries(_edge_encode_coresets(w[:half], HOST_K),
+                             IMPORTANCE_M)
+        sc = importance_coreset(w[half:], IMPORTANCE_M, u[t])
+        se = sampling_entries(encode_wire_samples(
+            sc.indices, sc.values, sc.mean, sc.var), HOST_K)
+        fresh = HostPayload(*(torch.cat([a, b]) for a, b in zip(ce, se)))
+        nid = torch.arange(n, dtype=torch.int32, device=dev)
+        mask = torch.ones(n, dtype=torch.bool, device=dev)
+        if prev is None:
+            prev = (fresh, nid, torch.zeros_like(mask))
+        entries = HostPayload(*(torch.cat([b[resend], a])
+                                for a, b in zip(fresh, prev[0])))
+        return (entries, torch.cat([prev[1][resend], nid]),
+                torch.cat([prev[2][resend], mask]), (fresh, nid, mask))
+
+    def run_b(keep=None):
+        state, outs, prev = host_server_init(cfg_b, dev), [], None
+        for t in range(s):
+            entries, nid, mask, prev = lane(t, prev)
+            if keep is not None:
+                keep.append((entries, nid, mask))
+            state, o = host_serve_slot(state, entries, nid, mask, cfg=cfg_b,
+                                       host_params=params, gen_params=gen)
+            outs.append(o)
+        return state, outs
+
+    lanes = []
+    ops.reset_launch_counts()
+    state_b, outs_b = run_b(lanes)
+    torch.cuda.synchronize()
+    launches_b = ops.launch_counts()
+    syncs_b, secs_b = _count_syncs(torch, run_b)
+    print(f"host serve (b) launches {launches_b}, expected {want}; "
+          f"synchronisations {syncs_b} in {s} slots; lane width "
+          f"{lanes[0][0].kind.shape[0]} of queue capacity "
+          f"{cfg_b.queue_capacity}")
+    assert launches_b == want, (launches_b, want)
+    prof_b = _profile(torch, run_b, s, secs_b, "host_serve_underprovisioned")
+    cpu_state, cpu_outs = host_server_init(cfg_b, "cpu"), []
+    for entries, nid, mask in lanes:
+        cpu_state, o = host_serve_slot(
+            cpu_state, HostPayload(*(x.cpu() for x in entries)), nid.cpu(),
+            mask.cpu(), cfg=cfg_b, host_params=cpu_params,
+            gen_params=cpu_gen)
+        cpu_outs.append(o)
+    checks = _host_checks(torch, state_b, outs_b, cpu_state, cpu_outs, cfg_b,
+                          "(b) under-provisioned")
+    st = checks["stats"]
+    assert st["deadline_misses"] > 0 and st["drops_overflow"] > 0
+    assert st["cache_hits"] > 0 and st["backlog"] > 0
+    out["underprovisioned"] = dict(
+        nodes=n, slots=s, lane_width=int(lanes[0][0].kind.shape[0]),
+        rows_served_per_slot=cfg_b.batches_per_slot * cfg_b.batch_size,
+        launches=launches_b, syncs_per_slot=syncs_b / s,
+        ms_per_slot=secs_b / s * 1e3, profile=prof_b, **checks)
+    for key, row in out.items():
+        print(f"host serve {key}: {row['ms_per_slot']:.3f} ms/slot, device "
+              f"busy {row['profile']['device_busy_ms_per_slot']:.4f} ms/slot,"
+              f" idle share {row['profile']['device_idle_share']:.3f}, "
+              f"{row['profile']['kernel_launches_per_slot']:.1f} launches/slot,"
+              f" {row['syncs_per_slot']:g} synchronisations/slot")
+    out["config"] = dataclasses.asdict(cfg_a)
+    return out
+
+
 def main() -> int:
     import torch
     smi = phase_card(torch)
@@ -1050,16 +1408,20 @@ def main() -> int:
     table, extra = phase_kernels(torch, dev)
     fleet, fleet_launches = phase_fleet(torch, dev)
     importance = phase_importance(torch, dev)
-    scarce = phase_scarce_fleet(torch, dev)
+    scarce, feed = phase_scarce_fleet(torch, dev)
     task_fleet = phase_task_fleet(torch, dev)
     streamed = phase_streamed(torch, dev)
+    host_serve = phase_host_serve(torch, dev, feed)
     # each kernel's launches on every path, each counted from zero;
     # ``launches`` is its main path's: the fleet's three, and the sampler's
     # entry point
     by_path = {"fleet": fleet_launches, "importance": importance,
                "scarce_fleet": scarce["launches"],
                "task_fleet": task_fleet["launches"],
-               "streamed": streamed["launches"]["streamed"]}
+               "streamed": streamed["launches"]["streamed"],
+               "host_serve_fleet": host_serve["fleet_queue_mode"]["launches"],
+               "host_serve_underprovisioned":
+                   host_serve["underprovisioned"]["launches"]}
     launches = dict(fleet_launches,
                     importance_select=importance["importance_select"])
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -1072,7 +1434,7 @@ def main() -> int:
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, kernels=kernels, timing=extra, ptxas=ptxas,
              fleet=fleet, scarce_fleet=scarce, task_fleet=task_fleet,
-             streamed=streamed), indent=1))
+             streamed=streamed, host_serve=host_serve), indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

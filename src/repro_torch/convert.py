@@ -15,11 +15,17 @@ import torch
 from .core.aac import AACTable
 from .core.energy import PredictorState
 from .core.recovery import GeneratorParams
-from .serving.edge_host import IntermittentState, SeekerNodeState
+from .host.cache import RecoveryCache
+from .host.queue import PayloadQueue
+from .host.server import HostPayload, HostServerState
+from .serving.edge_host import (IntermittentState, SeekerNodeState,
+                                WirePayload, WireSamplePayload)
 
 __all__ = ["tensor", "har_params", "aux_params", "generator_params",
            "aac_table", "node_state", "intermittent_state",
-           "task_host_params", "telemetry_state"]
+           "task_host_params", "telemetry_state", "wire_payload",
+           "wire_sample_payload", "host_payload", "host_server_state",
+           "to_numpy"]
 
 
 def tensor(x, dtype: torch.dtype | None = None, device=None) -> torch.Tensor:
@@ -80,3 +86,67 @@ def telemetry_state(metrics, device=None) -> dict[str, torch.Tensor]:
     """A JAX engine's ``res["telemetry"]`` dict -> the port's int32
     tensors (a ``telemetry_state0``)."""
     return {k: tensor(v, torch.int32, device) for k, v in metrics.items()}
+
+
+def _same_dtypes(tup, cls, device):
+    """A NamedTuple of arrays -> ``cls`` of tensors with each leaf's dtype
+    (int8, int16, int32, bool, float32) kept."""
+    return cls(*(torch.as_tensor(np.array(getattr(tup, f)), device=device)
+                 for f in cls._fields))
+
+
+def wire_payload(p, device=None) -> WirePayload:
+    """``repro.serving.edge_host.WirePayload`` -> the port's (int16, int8,
+    int8 codes and float32 ranges)."""
+    return _same_dtypes(p, WirePayload, device)
+
+
+def wire_sample_payload(p, device=None) -> WireSamplePayload:
+    """``repro.serving.edge_host.WireSamplePayload`` -> the port's."""
+    return _same_dtypes(p, WireSamplePayload, device)
+
+
+def host_payload(p, device=None) -> HostPayload:
+    """``repro.host.server.HostPayload`` entries -> the port's."""
+    return _same_dtypes(p, HostPayload, device)
+
+
+def host_server_state(state, device=None) -> HostServerState:
+    """``repro.host.server.HostServerState`` -> the port's: the same layout,
+    with the uint32 cache signatures held as int64."""
+    q, c = state.queue, state.cache
+
+    def t(x, dtype=None):
+        return tensor(x, dtype, device)
+
+    return HostServerState(
+        queue=PayloadQueue(
+            payload=host_payload(q.payload, device),
+            node_id=t(q.node_id, torch.int32),
+            arrival=t(q.arrival, torch.int32),
+            deadline=t(q.deadline, torch.int32), valid=t(q.valid, torch.bool),
+            cursor=t(q.cursor, torch.int32),
+            drops_overflow=t(q.drops_overflow, torch.int32)),
+        cache=RecoveryCache(
+            sig=t(np.asarray(c.sig).astype(np.int64)),
+            logits=t(c.logits, torch.float32), valid=t(c.valid, torch.bool),
+            cursor=t(c.cursor, torch.int32), hits=t(c.hits, torch.int32),
+            misses=t(c.misses, torch.int32)),
+        slot=t(state.slot, torch.int32), served=t(state.served, torch.int32),
+        deadline_misses=t(state.deadline_misses, torch.int32),
+        ensemble_logits=t(state.ensemble_logits, torch.float32),
+        ensemble_votes=t(state.ensemble_votes, torch.int32),
+        metrics=(None if state.metrics is None
+                 else telemetry_state(state.metrics, device)))
+
+
+def to_numpy(tree):
+    """The port's NamedTuples, dicts and tensors as numpy arrays, in the
+    same structure (``None`` stays ``None``), for comparing with JAX."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_numpy(x) for x in tree))
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()

@@ -3,6 +3,8 @@ decision flow."""
 from .coreset import (  # noqa: F401
     ClusterCoreset, SamplingCoreset, points_from_window, window_from_points,
     channel_cluster_coresets, importance_weights, importance_coreset,
+    quantize_uniform, dequantize_uniform, EncodedClusterCoreset,
+    encode_cluster_coreset, decode_cluster_coreset,
     raw_payload_bytes, cluster_payload_bytes, sampling_payload_bytes,
 )
 from .recovery import (  # noqa: F401
@@ -17,7 +19,9 @@ from .energy import (  # noqa: F401
     supercap_step_direct, SUPERCAP_CAP_UJ, SUPERCAP_CHARGE_EFF,
     PredictorState, predictor_init, predictor_update, predictor_forecast,
 )
-from .aac import AACTable, make_aac_table, select_k  # noqa: F401
+from .aac import (  # noqa: F401
+    AACTable, make_aac_table, select_k, aac_payload_bytes,
+)
 from .decision import (  # noqa: F401
     D0_MEMO, D1_DNN_FULL, D2_DNN_QUANT, D3_CLUSTER, D4_SAMPLING, DEFER,
     D6_PARTIAL, D7_EARLY_EXIT, D8_STAGED_FULL, N_INTERMITTENT_DECISIONS,

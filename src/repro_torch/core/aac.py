@@ -9,7 +9,9 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["AACTable", "make_aac_table", "select_k"]
+from .coreset import cluster_payload_bytes
+
+__all__ = ["AACTable", "make_aac_table", "select_k", "aac_payload_bytes"]
 
 
 class AACTable(NamedTuple):
@@ -59,3 +61,11 @@ def select_k(table: AACTable, pred_class: torch.Tensor,
     idx = torch.argmax(ok.to(torch.int32), dim=-1)
     any_ok = ok.any(dim=-1)
     return torch.where(any_ok, table.ks[idx], table.ks[0])
+
+
+def aac_payload_bytes(ks) -> torch.Tensor:
+    """Payload bytes of a trace of selected k values, int32 (the paper's
+    2 B center, 1 B radius and 4-bit count per cluster)."""
+    ks = torch.as_tensor(ks)
+    return torch.tensor([cluster_payload_bytes(int(k)) for k in ks.reshape(-1)],
+                        dtype=torch.int32, device=ks.device)

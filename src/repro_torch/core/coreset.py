@@ -24,7 +24,9 @@ from ..kernels.ops import kmeans_coreset_op
 __all__ = [
     "ClusterCoreset", "SamplingCoreset", "unit_grid", "points_from_window",
     "window_from_points", "channel_cluster_coresets", "importance_weights",
-    "importance_coreset", "raw_payload_bytes", "cluster_payload_bytes",
+    "importance_coreset", "quantize_uniform", "dequantize_uniform",
+    "EncodedClusterCoreset", "encode_cluster_coreset",
+    "decode_cluster_coreset", "raw_payload_bytes", "cluster_payload_bytes",
     "sampling_payload_bytes",
 ]
 
@@ -183,6 +185,76 @@ def importance_coreset(window: torch.Tensor, m: int, u: torch.Tensor,
     weights = 1.0 / torch.clamp(m * w.gather(-1, idx), min=1e-9)
     return SamplingCoreset(indices=idx.to(torch.int32), values=values,
                            weights=weights, mean=mean, var=var)
+
+
+# ---------------------------------------------------------------------------
+# Quantized wire encoding (paper §3.2, §4)
+# ---------------------------------------------------------------------------
+
+def _range(hi, lo) -> torch.Tensor:
+    """``max(hi - lo, 1e-9)`` in float32, for tensor or float bounds."""
+    return torch.clamp(torch.as_tensor(hi - lo, dtype=torch.float32),
+                       min=1e-9)
+
+
+def quantize_uniform(x: torch.Tensor, bits: int, lo, hi) -> torch.Tensor:
+    """Uniform quantization of ``x`` clipped to ``[lo, hi]`` to ``bits``
+    bits; int32 codes, rounded half to even like ``jnp.round``."""
+    levels = (1 << bits) - 1
+    lo_t = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
+    hi_t = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
+    xc = torch.clamp(x, lo_t, hi_t)
+    scale = _range(hi_t, lo_t)
+    return torch.round((xc - lo_t) / scale * levels).to(torch.int32)
+
+
+def dequantize_uniform(codes: torch.Tensor, bits: int, lo,
+                       hi) -> torch.Tensor:
+    levels = (1 << bits) - 1
+    scale = _range(torch.as_tensor(hi, dtype=torch.float32,
+                                   device=codes.device),
+                   torch.as_tensor(lo, dtype=torch.float32,
+                                   device=codes.device))
+    return codes.to(torch.float32) / levels * scale + lo
+
+
+class EncodedClusterCoreset(NamedTuple):
+    """The wire format of Table/§3.2: per cluster 2 B center + 1 B radius +
+    4 bit count, plus a (lo, hi) range pair shared by the whole payload."""
+
+    center_codes: torch.Tensor  # (k, D) int32, center_bits / D bits a dim
+    radius_codes: torch.Tensor  # (k,) int32, 8-bit
+    counts: torch.Tensor        # (k,) int32, 4-bit on the wire
+    lo: torch.Tensor
+    hi: torch.Tensor
+
+
+def encode_cluster_coreset(cs: ClusterCoreset, center_bits: int = 16,
+                           radius_bits: int = 8) -> EncodedClusterCoreset:
+    """Quantize one coreset: centers over their (min, max) range, radii
+    over ``[0, max radius]``."""
+    d = cs.centers.shape[-1]
+    per_dim_bits = max(center_bits // d, 1)
+    lo = cs.centers.min()
+    hi = cs.centers.max()
+    center_codes = quantize_uniform(cs.centers, per_dim_bits, lo, hi)
+    rhi = torch.clamp(cs.radii.max(), min=1e-9)
+    radius_codes = quantize_uniform(cs.radii, radius_bits, 0.0, rhi)
+    return EncodedClusterCoreset(center_codes, radius_codes, cs.counts, lo,
+                                 rhi * 0 + hi)
+
+
+def decode_cluster_coreset(enc: EncodedClusterCoreset, center_bits: int = 16,
+                           radius_bits: int = 8) -> ClusterCoreset:
+    """Dequantize; the radius range is taken as ``hi - lo`` (the wire
+    carries one range pair), as the reference does."""
+    d = enc.center_codes.shape[-1]
+    per_dim_bits = max(center_bits // d, 1)
+    centers = dequantize_uniform(enc.center_codes, per_dim_bits, enc.lo,
+                                 enc.hi)
+    rhi = _range(enc.hi, enc.lo)
+    radii = dequantize_uniform(enc.radius_codes, radius_bits, 0.0, rhi)
+    return ClusterCoreset(centers=centers, radii=radii, counts=enc.counts)
 
 
 # ---------------------------------------------------------------------------

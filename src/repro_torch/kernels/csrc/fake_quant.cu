@@ -38,6 +38,12 @@
 //     Per tensor, each thread keeps its first kHeld items in registers across
 //     the barrier; per channel (off the fleet path) the column maxima are
 //     taken with shared-memory atomics and the second phase reads x again.
+//   * Per channel with more than kMaxCols = 4096 columns (the reference
+//     takes any count): the same launch, but each block takes its column
+//     maxima with atomics straight into its own row of the scratch in
+//     device memory, and a second grid-wide barrier separates the scale of
+//     each column, computed once and written to the scratch, from the
+//     quantize phase, which reads it through L2.
 // Parity with the plain version (repro_torch.kernels.ref.fake_quant_scale
 // and fake_quant_ref), bit for bit:
 //   * max is exact in any order, and the unsigned order of the bits of a
@@ -215,6 +221,46 @@ fake_quant_channel_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
+// One scale per column of any number of columns; a cooperative launch.
+// partial: `cols` words per block, then the `cols` scales.
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+fake_quant_channel_wide_kernel(const float* __restrict__ x,
+                               float* __restrict__ out,
+                               unsigned* __restrict__ partial, long long n,
+                               int cols, float rq, float qmax) {
+  cg::grid_group grid = cg::this_grid();
+  unsigned* row = partial + static_cast<size_t>(blockIdx.x) * cols;
+  float* scale =
+      reinterpret_cast<float*>(partial + static_cast<size_t>(gridDim.x) * cols);
+  for (int j = threadIdx.x; j < cols; j += kThreads) row[j] = 0;
+  __syncthreads();  // the row is zero before any thread of the block adds
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const int step = static_cast<int>(stride % cols);
+  const int c0 = static_cast<int>(first % cols);
+  int c = c0;
+  for (long long i = first; i < n; i += stride) {
+    atomicMax(row + c, abs_bits(x[i]));
+    c += step;
+    if (c >= cols) c -= cols;
+  }
+  grid.sync();
+  for (long long j = first; j < cols; j += stride) {
+    unsigned a = 0;
+    for (int b = 0; b < gridDim.x; ++b)
+      a = max(a, __ldcg(partial + static_cast<size_t>(b) * cols + j));
+    scale[j] = scale_of(a, rq);
+  }
+  grid.sync();
+  c = c0;
+  for (long long i = first; i < n; i += stride) {
+    out[i] = quant(__ldcs(x + i), __ldcg(scale + c), qmax);
+    c += step;
+    if (c >= cols) c -= cols;
+  }
+}
+
 long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
 template <typename V>
@@ -275,14 +321,31 @@ int launch_channel(const void* x, void* out, void* partial, long long n,
       kThreads, args, static_cast<size_t>(smem), stream));
 }
 
+int launch_channel_wide(const void* x, void* out, void* partial,
+                        long long n, int cols, float rq, float qmax,
+                        int blocks, int smem, cudaStream_t stream) {
+  const long long want = std::min(cdiv(n, 1LL * kThreads * kChannelItems),
+                                  static_cast<long long>(kSms));
+  if (cols <= kMaxCols || n % cols || blocks != want || smem != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* xp = static_cast<const float*>(x);
+  float* op = static_cast<float*>(out);
+  unsigned* pp = static_cast<unsigned*>(partial);
+  void* args[] = {&xp, &op, &pp, &n, &cols, &rq, &qmax};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(fake_quant_channel_wide_kernel), blocks,
+      kThreads, args, 0, stream));
+}
+
 }  // namespace
 
 // The kernel and its launch geometry come from the wrapper
 // (repro_torch.kernels.ops.fake_quant_geometry): `variant` 0 and 1 are the
 // per-group kernel (float4 or float items), 2 and 3 the per-tensor kernel
-// (float4 or float), 4 the per-channel kernel.  `partial` is scratch of one
-// word per block (per channel: `cols` words per block) for variants 2-4,
-// unused otherwise.  A geometry that does not fit
+// (float4 or float), 4 the per-channel kernel, 5 the per-channel kernel for
+// more than 4096 columns.  `partial` is scratch of one word per block (per
+// channel: `cols` words per block, and for variant 5 `cols` more) for
+// variants 2-5, unused otherwise.  A geometry that does not fit
 // is refused with cudaErrorInvalidValue.
 extern "C" int fake_quant_launch(const void* x, void* out, void* partial,
                                  long long n, int cols, long long group_elems,
@@ -298,6 +361,7 @@ extern "C" int fake_quant_launch(const void* x, void* out, void* partial,
     case 2: return launch_tensor<float4>(x, out, partial, n, rq, qmax, blocks, smem, s);
     case 3: return launch_tensor<float>(x, out, partial, n, rq, qmax, blocks, smem, s);
     case 4: return launch_channel(x, out, partial, n, cols, rq, qmax, blocks, smem, s);
+    case 5: return launch_channel_wide(x, out, partial, n, cols, rq, qmax, blocks, smem, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -53,13 +53,18 @@
 //     per step set and a population count below the lane.
 // Every lane of a warp reaches its __syncwarp()s and ballots; there is no
 // block-wide barrier, so a warp without a window leaves at once.
+// Windows of up to 128 samples (the bearing config's 120): lane l owns time
+// steps l, l + 32, ..., STEPS of them; STEPS = 2 serves T <= 64 (the HAR
+// fleet's 60, unchanged) and STEPS = 4 serves T <= 128.  The picks are
+// written in time order: step set s before s + 1, lanes in order within a
+// set.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int kSteps = 2;     // time steps per lane: T <= 64
+constexpr int kMaxSteps = 4;  // time steps per lane at most: T <= 128
 constexpr int kMaxWarps = 32;
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
@@ -70,8 +75,9 @@ __host__ __device__ constexpr int warp_floats(int T, int C) {
   return round4(T * C) + round4(T);
 }
 
-// CT, WT: the channel count and box width, or 0 where they are runtime.
-template <int CT, int WT>
+// CT, WT: the channel count and box width, or 0 where they are runtime;
+// STEPS: time steps per lane, T <= 32 * STEPS.
+template <int CT, int WT, int STEPS>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1)
 importance_select_kernel(const float* __restrict__ windows,
                          int* __restrict__ idx_out,
@@ -105,9 +111,9 @@ importance_select_kernel(const float* __restrict__ windows,
   const int pad_l = width / 2;
   const bool pow2 = (width & (width - 1)) == 0;
   const float inv_width = 1.f / static_cast<float>(width);  // exact if pow2
-  float detr[kSteps];
+  float detr[STEPS];
 #pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
+  for (int s = 0; s < STEPS; ++s) {
     const int t = lane + 32 * s;
     detr[s] = 0.f;
     if (t >= T) continue;
@@ -140,59 +146,61 @@ importance_select_kernel(const float* __restrict__ windows,
   total = fmaxf(total, 1e-9f);
 
   // + 0 turns a -0 into the +0 it ties with in the plain version's sort
-  float w[kSteps];
+  float w[STEPS];
 #pragma unroll
-  for (int s = 0; s < kSteps; ++s)
+  for (int s = 0; s < STEPS; ++s)
     w[s] = __fadd_rn(
         __fadd_rn(__fmul_rn(keep, __fdiv_rn(detr[s], total)), floor_w), 0.f);
   __syncwarp();  // every lane has read every detr before they become weights
   // the weights, padded with -inf: never above a weight, never tied
 #pragma unroll
-  for (int s = 0; s < kSteps; ++s)
+  for (int s = 0; s < STEPS; ++s)
     if (lane + 32 * s < round4(T))
       wsh[lane + 32 * s] = lane + 32 * s < T ? w[s] : -CUDART_INF_F;
   __syncwarp();
 
   // rank of each own step in (weight descending, index ascending): the
   // larger weights (the padding, -inf, is never larger) ...
-  unsigned part[kSteps][4] = {};
+  unsigned part[STEPS][4] = {};
 #pragma unroll 4
   for (int k = 0; k < n4; ++k) {
     const float4 q = w4[k];
 #pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
+    for (int s = 0; s < STEPS; ++s) {
       part[s][0] += __float_as_uint(__fsub_rn(w[s], q.x)) >> 31;
       part[s][1] += __float_as_uint(__fsub_rn(w[s], q.y)) >> 31;
       part[s][2] += __float_as_uint(__fsub_rn(w[s], q.z)) >> 31;
       part[s][3] += __float_as_uint(__fsub_rn(w[s], q.w)) >> 31;
     }
   }
-  int rank[kSteps];
+  int rank[STEPS];
 #pragma unroll
-  for (int s = 0; s < kSteps; ++s)
+  for (int s = 0; s < STEPS; ++s)
     rank[s] = part[s][0] + part[s][1] + part[s][2] + part[s][3];
   // ... then, where two weights tie, the equal ones before the step
-  const int sum = __reduce_add_sync(
-      0xffffffffu, (lane < T ? rank[0] : 0) + (lane + 32 < T ? rank[1] : 0));
+  int own = 0;
+#pragma unroll
+  for (int s = 0; s < STEPS; ++s) own += lane + 32 * s < T ? rank[s] : 0;
+  const int sum = __reduce_add_sync(0xffffffffu, own);
   if (sum != T * (T - 1) / 2) {
     for (int u = 0; u < T; ++u) {
       const float wu = wsh[u];
 #pragma unroll
-      for (int s = 0; s < kSteps; ++s)
+      for (int s = 0; s < STEPS; ++s)
         rank[s] += wu == w[s] && u < lane + 32 * s;
     }
   }
-  bool pick[kSteps];
-  unsigned ballot[kSteps];
+  bool pick[STEPS];
+  unsigned ballot[STEPS];
 #pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
+  for (int s = 0; s < STEPS; ++s) {
     pick[s] = lane + 32 * s < T && rank[s] < m;
     ballot[s] = __ballot_sync(0xffffffffu, pick[s]);
   }
   const unsigned below = (1u << lane) - 1u;
   int slot = 0;
 #pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
+  for (int s = 0; s < STEPS; ++s) {
     const int t = lane + 32 * s;
     const int at = slot + __popc(ballot[s] & below);
     if (pick[s] && at < m) {
@@ -206,11 +214,12 @@ importance_select_kernel(const float* __restrict__ windows,
   }
 }
 
-template <int CT, int WT>
+template <int CT, int WT, int STEPS>
 int launch(const void* windows, void* idx, void* vals, void* weights, int B,
            int T, int C, int m, int width, float keep, float floor_w,
            int blocks, int threads, int smem, cudaStream_t stream) {
-  importance_select_kernel<CT, WT><<<blocks, threads, smem, stream>>>(
+  if (T > 32 * STEPS) return static_cast<int>(cudaErrorInvalidValue);
+  importance_select_kernel<CT, WT, STEPS><<<blocks, threads, smem, stream>>>(
       static_cast<const float*>(windows), static_cast<int*>(idx),
       static_cast<float*>(vals), static_cast<float*>(weights), B, T, C, m,
       width, keep, floor_w);
@@ -221,8 +230,9 @@ int launch(const void* windows, void* idx, void* vals, void* weights, int B,
 
 // The launch geometry comes from the wrapper
 // (repro_torch.kernels.ops.importance_select_geometry): `variant` 0 is the
-// (C, width) = (3, 8) instantiation, 1 the runtime one; `tile` windows (one
-// warp each) per block.  A geometry that does not fit is refused with
+// (C, width) = (3, 8) instantiation, 1 the runtime one, both for T <= 64;
+// 2 and 3 are the same two for T <= 128; `tile` windows (one warp each) per
+// block.  A geometry that does not fit is refused with
 // cudaErrorInvalidValue.
 extern "C" int importance_select_launch(const void* windows, void* idx,
                                         void* vals, void* weights, int B,
@@ -231,17 +241,23 @@ extern "C" int importance_select_launch(const void* windows, void* idx,
                                         int variant, int tile, int blocks,
                                         int threads, int smem, void* stream) {
   if (B <= 0) return 0;
-  if (T < 1 || T > 32 * kSteps || C < 1 || C > 8 || m < 1 || m > T ||
+  if (T < 1 || T > 32 * kMaxSteps || C < 1 || C > 8 || m < 1 || m > T ||
       width < 1 || tile < 1 || tile > kMaxWarps || threads != 32 * tile ||
       blocks != (B + tile - 1) / tile ||
       smem != 4 * tile * warp_floats(T, C) || smem > 48 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (variant == 0 && C == 3 && width == 8)
-    return launch<3, 8>(windows, idx, vals, weights, B, T, C, m, width, keep,
-                        floor_w, blocks, threads, smem, s);
-  if (variant == 1)
-    return launch<0, 0>(windows, idx, vals, weights, B, T, C, m, width, keep,
-                        floor_w, blocks, threads, smem, s);
+  const bool har = C == 3 && width == 8;
+  switch (variant) {
+    case 0: if (!har) break;
+      return launch<3, 8, 2>(windows, idx, vals, weights, B, T, C, m, width, keep, floor_w, blocks, threads, smem, s);
+    case 1:
+      return launch<0, 0, 2>(windows, idx, vals, weights, B, T, C, m, width, keep, floor_w, blocks, threads, smem, s);
+    case 2: if (!har) break;
+      return launch<3, 8, 4>(windows, idx, vals, weights, B, T, C, m, width, keep, floor_w, blocks, threads, smem, s);
+    case 3:
+      return launch<0, 0, 4>(windows, idx, vals, weights, B, T, C, m, width, keep, floor_w, blocks, threads, smem, s);
+    default: break;
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -48,11 +48,14 @@
 //   * The final pass gathers counts (sum) and radii (max of sqrt of the
 //     squared distance) through the same columns, and the block writes its
 //     clouds' centres, radii and counts as contiguous, coalesced ranges.
-// Two instantiations serve the wrapper's range (N <= 64, D <= 4, K <= 32):
-// (K_MAX, D_MAX) = (16, 2), the fleet's, and (32, 4); the wrapper
-// (repro_torch.kernels.ops.kmeans_coreset_geometry) picks by shape.  At
-// (N, D, K) = (64, 4, 32) the block needs 57.9 KB of shared memory, which
-// the launch opts in to.
+// Four instantiations serve the wrapper's range (N <= 128, D <= 4,
+// K <= 32), each (K_MAX, D_MAX, N_MAX): (16, 2, 64), the fleet's, and
+// (32, 4, 64); for clouds of 65 to 128 points, such as the 120-sample
+// windows of the bearing config with k = 18, (32, 2, 128) and (32, 4, 128),
+// whose lanes hold twice the points in registers.  The wrapper
+// (repro_torch.kernels.ops.kmeans_coreset_geometry) picks the first that
+// holds the shape.  At (N, D, K) = (64, 4, 32) the block needs 57.9 KB of
+// shared memory, at (128, 4, 32) 66.1 KB, which the launch opts in to.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -62,8 +65,7 @@ namespace {
 constexpr int kGroup = 8;                 // lanes per cloud
 constexpr int kThreads = 64;              // threads per block
 constexpr int kClouds = kThreads / kGroup;
-constexpr int kMaxN = 64;
-constexpr int kPoints = kMaxN / kGroup;   // points per lane at most
+constexpr int kMaxN = 128;                // the widest instantiation's N_MAX
 
 // Shared memory a block needs, in this order: points; centres (one padded
 // row per cloud so the 4 clouds of a warp read distinct banks); radii;
@@ -103,8 +105,8 @@ __device__ __forceinline__ float combine(float* row) {
 
 // MinBlocks caps the registers so that at least that many 64-thread blocks
 // fit on an SM: 12 (80 registers) for the fleet's instantiation, whose 1125
-// blocks then make one wave on 132 SMs.
-template <int KMAX, int DMAX, int MinBlocks>
+// blocks then make one wave on 132 SMs.  A lane holds NMAX / kGroup points.
+template <int KMAX, int DMAX, int NMAX, int MinBlocks>
 __global__ void __launch_bounds__(kThreads, MinBlocks)
 kmeans_coreset_kernel(const float* __restrict__ pts,
                       float* __restrict__ centers_out,
@@ -112,6 +114,7 @@ kmeans_coreset_kernel(const float* __restrict__ pts,
                       int* __restrict__ counts_out, int B, int N, int D,
                       int K, int iters) {
   constexpr int kCen = centre_stride(KMAX, DMAX);
+  constexpr int kPoints = NMAX / kGroup;  // points per lane at most
   extern __shared__ float smem[];
   const int nd = N * D;
   float* pts_s = smem;                          // (kClouds, N, D)
@@ -259,19 +262,20 @@ kmeans_coreset_kernel(const float* __restrict__ pts,
   }
 }
 
-template <int KMAX, int DMAX, int MinBlocks>
+template <int KMAX, int DMAX, int NMAX, int MinBlocks>
 int launch(const void* pts, void* centers, void* radii, void* counts, int B,
            int N, int D, int K, int iters, int blocks, int smem,
            cudaStream_t stream) {
-  if (K > KMAX || D > DMAX || smem != smem_bytes(KMAX, DMAX, N, D, K))
+  if (K > KMAX || D > DMAX || N > NMAX ||
+      smem != smem_bytes(KMAX, DMAX, N, D, K))
     return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kmeans_coreset_kernel<KMAX, DMAX, MinBlocks>,
+        kmeans_coreset_kernel<KMAX, DMAX, NMAX, MinBlocks>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kmeans_coreset_kernel<KMAX, DMAX, MinBlocks>
+  kmeans_coreset_kernel<KMAX, DMAX, NMAX, MinBlocks>
       <<<blocks, kThreads, smem, stream>>>(
           static_cast<const float*>(pts), static_cast<float*>(centers),
           static_cast<float*>(radii), static_cast<int*>(counts), B, N, D, K,
@@ -283,8 +287,9 @@ int launch(const void* pts, void* centers, void* radii, void* counts, int B,
 
 // The launch geometry comes from the wrapper
 // (repro_torch.kernels.ops.kmeans_coreset_geometry): `variant` 0 is the
-// (K_MAX, D_MAX) = (16, 2) instantiation, 1 is (32, 4).  A geometry that
-// does not fit this kernel is refused with cudaErrorInvalidValue.
+// (K_MAX, D_MAX, N_MAX) = (16, 2, 64) instantiation, 1 is (32, 4, 64), 2 is
+// (32, 2, 128) and 3 is (32, 4, 128).  A geometry that does not fit this
+// kernel is refused with cudaErrorInvalidValue.
 extern "C" int kmeans_coreset_launch(const void* pts, void* centers,
                                      void* radii, void* counts, int B, int N,
                                      int D, int K, int iters, int variant,
@@ -295,11 +300,11 @@ extern "C" int kmeans_coreset_launch(const void* pts, void* centers,
       threads != kThreads || blocks != (B + kClouds - 1) / kClouds)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (variant == 0)
-    return launch<16, 2, 12>(pts, centers, radii, counts, B, N, D, K, iters,
-                             blocks, smem, s);
-  if (variant == 1)
-    return launch<32, 4, 8>(pts, centers, radii, counts, B, N, D, K, iters,
-                            blocks, smem, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (variant) {
+    case 0: return launch<16, 2, 64, 12>(pts, centers, radii, counts, B, N, D, K, iters, blocks, smem, s);
+    case 1: return launch<32, 4, 64, 8>(pts, centers, radii, counts, B, N, D, K, iters, blocks, smem, s);
+    case 2: return launch<32, 2, 128, 6>(pts, centers, radii, counts, B, N, D, K, iters, blocks, smem, s);
+    case 3: return launch<32, 4, 128, 4>(pts, centers, radii, counts, B, N, D, K, iters, blocks, smem, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

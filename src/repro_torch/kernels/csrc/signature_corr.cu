@@ -39,6 +39,9 @@
 // result is bit-identical from launch to launch); the sums over t are taken
 // in another order than the plain version's, within rtol 1e-4 / atol 1e-5.
 // Every thread reaches both barriers; the ragged last tile only skips work.
+// Nothing in the layout depends on T beyond the row stride, so windows of up
+// to kMaxT = 128 samples (the bearing config's 120) take the same kernel; a
+// longer row only makes the staged tile smaller.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -46,6 +49,7 @@ namespace {
 
 constexpr int kGroup = 2;       // lanes per column in the centring pass
 constexpr int kMaxThreads = 1024;
+constexpr int kMaxT = 128;      // the longest window: the bearing config's 120
 
 __device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
@@ -201,7 +205,7 @@ extern "C" int signature_corr_launch(const void* win, const void* sig,
   if (B <= 0) return 0;
   const long long need = 4LL * (static_cast<long long>(tile) + L) *
                          (row_stride(T, C) + C);
-  if (T < 1 || T > 64 || L < 1 || tile < 1 ||
+  if (T < 1 || T > kMaxT || L < 1 || tile < 1 ||
       blocks != (B + tile - 1) / tile || threads < 32 || threads % 32 ||
       threads > kMaxThreads || smem != need)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -34,7 +34,8 @@ __all__ = ["signature_corr_op", "fake_quant_op", "kmeans_coreset_op",
            "importance_select_op", "launch_counts", "reset_launch_counts",
            "kernel_library", "Geometry", "signature_corr_geometry",
            "fake_quant_geometry", "fake_quant_constants",
-           "kmeans_coreset_geometry", "importance_select_geometry", "SMS"]
+           "kmeans_coreset_geometry", "importance_select_geometry", "SMS",
+           "MAX_T"]
 
 SMS = 132                      # streaming multiprocessors of an H100 SXM
 SMEM_DEFAULT = 48 * 1024       # dynamic shared memory without the opt-in
@@ -43,17 +44,25 @@ SMEM_PER_SM = 233_472          # shared memory an SM gives its blocks
 # signature_corr.cu: threads per block at most
 CORR_MAX_THREADS = 1024
 # kmeans_coreset.cu: lanes per cloud, threads per block, and the
-# (K_MAX, D_MAX) instantiations with their __launch_bounds__ minimum of
-# resident blocks per SM
+# (K_MAX, D_MAX, N_MAX) instantiations with their __launch_bounds__ minimum
+# of resident blocks per SM
 KMEANS_GROUP, KMEANS_THREADS = 8, 64
-KMEANS_VARIANTS = ((16, 2, 12), (32, 4, 8))
+KMEANS_VARIANTS = ((16, 2, 64, 12), (32, 4, 64, 8), (32, 2, 128, 6),
+                   (32, 4, 128, 4))
+# the longest window (kmeans_coreset: cloud) the kernels take: the bearing
+# config's 120 samples fit, and the int8 index field of the sampling wire
+# format caps T at 127 anyway
+MAX_T = 128
 # fake_quant.cu: threads per block and the __launch_bounds__ minimum of
 # resident blocks per SM (every kernel), items a thread holds in registers,
-# elements per thread of a per-channel block, and the most columns it takes
+# elements per thread of a per-channel block, and the most columns whose
+# maxima a per-channel block keeps in shared memory (more: variant 5)
 FQ_THREADS, FQ_PER_SM, FQ_HELD = 256, 4, 8
 FQ_CHANNEL_ITEMS, FQ_MAX_COLS = 8, 4096
-# importance_select.cu: windows (warps) per block at most
+# importance_select.cu: windows (warps) per block at most, and the time steps
+# a lane owns in the two instantiations (T <= 64, T <= 128)
 IMP_MAX_WARPS = 32
+IMP_STEPS = (2, 4)
 
 
 class Geometry(NamedTuple):
@@ -93,10 +102,11 @@ def signature_corr_geometry(b: int, l: int, t: int, c: int) -> Geometry:
     """Tiles of ``tile`` consecutive nodes, about one block per SM for the
     fleet's nodes; the windows and the bank staged in padded rows, plus one
     norm per column.  The instantiation ``variant`` is C."""
-    if not (1 <= t <= 64 and 1 <= c <= 4 and l >= 1
+    if not (1 <= t <= MAX_T and 1 <= c <= 4 and l >= 1
             and (l * t * c + l * c) * 4 <= 48 * 1024):
-        raise ValueError(f"signature_corr: kernel takes T <= 64, C <= 4 and "
-                         f"a bank of at most 48 KB, got T={t}, C={c}, L={l}")
+        raise ValueError(f"signature_corr: kernel takes T <= {MAX_T}, C <= 4 "
+                         f"and a bank of at most 48 KB, got T={t}, C={c}, "
+                         f"L={l}")
     row = _corr_row_stride(t, c) + c        # floats per staged row + norms
     most = (SMEM_OPTIN // 4 - l * row) // row
     tile = max(1, min(-(-b // SMS), most))
@@ -109,13 +119,14 @@ def signature_corr_geometry(b: int, l: int, t: int, c: int) -> Geometry:
 
 def kmeans_coreset_geometry(b: int, n: int, d: int, k: int) -> Geometry:
     """Groups of :data:`KMEANS_GROUP` lanes, one cloud each, and the first
-    (K_MAX, D_MAX) instantiation that holds ``k`` and ``d``."""
-    if not (1 <= n <= 64 and 1 <= d <= 4 and 1 <= k <= 32):
-        raise ValueError(f"kmeans_coreset: kernel takes N <= 64, D <= 4, "
+    (K_MAX, D_MAX, N_MAX) instantiation that holds ``k``, ``d`` and ``n``."""
+    if not (1 <= n <= MAX_T and 1 <= d <= 4 and 1 <= k <= 32):
+        raise ValueError(f"kmeans_coreset: kernel takes N <= {MAX_T}, D <= 4, "
                          f"k <= 32, got N={n}, D={d}, k={k}")
-    variant = next(i for i, (kmax, dmax, _) in enumerate(KMEANS_VARIANTS)
-                   if k <= kmax and d <= dmax)
-    kmax, dmax, min_blocks = KMEANS_VARIANTS[variant]
+    variant = next(i for i, (kmax, dmax, nmax, _)
+                   in enumerate(KMEANS_VARIANTS)
+                   if k <= kmax and d <= dmax and n <= nmax)
+    kmax, dmax, _, min_blocks = KMEANS_VARIANTS[variant]
     clouds = KMEANS_THREADS // KMEANS_GROUP
     # points, centres, radii and counts per cloud; the lanes' partial sums
     smem = 4 * (clouds * (n * d + kmax * dmax + 1 + 2 * kmax)
@@ -143,22 +154,24 @@ def fake_quant_geometry(numel: int, cols: int, groups: int,
 
     ``variant`` 0 and 1: one group per warp, ``tile`` groups a block,
     float4 items (0) or floats (1); 2 and 3: per tensor (float4 or
-    floats), 4: per channel, each one cooperative launch of at most the
-    blocks that are resident at once."""
+    floats), 4: per channel with the column maxima in shared memory (at
+    most :data:`FQ_MAX_COLS` columns), 5: per channel with them in the
+    scratch, any column count; each of 2-5 one cooperative launch of at
+    most the blocks that are resident at once."""
     if not (numel >= 1 and cols >= 1 and groups >= 1 and numel % groups == 0
             and numel % cols == 0 and numel // groups < 2 ** 31
-            and groups < 2 ** 31
-            and (not per_channel or (groups == 1 and cols <= FQ_MAX_COLS))):
+            and groups < 2 ** 31 and cols < 2 ** 31
+            and (not per_channel or groups == 1)):
         raise ValueError(f"fake_quant: kernel takes whole groups of fewer "
-                         f"than 2**31 floats and at most {FQ_MAX_COLS} "
-                         f"per-channel columns, got numel={numel}, "
-                         f"cols={cols}, groups={groups}, "
+                         f"than 2**31 floats, per channel one group, got "
+                         f"numel={numel}, cols={cols}, groups={groups}, "
                          f"per_channel={per_channel}")
     if per_channel:
         blocks = min(-(-numel // (FQ_THREADS * FQ_CHANNEL_ITEMS)), SMS)
+        wide = cols > FQ_MAX_COLS
         return Geometry(tile=0, group=0, blocks=blocks, threads=FQ_THREADS,
-                        smem=4 * cols, optin=False, variant=4,
-                        per_sm=FQ_PER_SM)
+                        smem=0 if wide else 4 * cols, optin=False,
+                        variant=5 if wide else 4, per_sm=FQ_PER_SM)
     size = numel // groups
     vec = aligned and size % 4 == 0
     if groups == 1:
@@ -184,18 +197,20 @@ def importance_select_geometry(b: int, t: int, c: int, m: int,
     """One warp per window, ``tile`` windows a block: about one block per SM
     for the fleet's windows, within the default 48 KB of shared memory.
     ``variant`` 0 is the (C, width) = (3, 8) instantiation, 1 the
-    runtime one."""
-    if not (b >= 1 and 1 <= t <= 64 and 1 <= c <= 8 and 1 <= m <= t
+    runtime one, each with :data:`IMP_STEPS` ``[0]`` time steps a lane
+    (T <= 64); 2 and 3 are the same with ``[1]`` (T <= 128)."""
+    if not (b >= 1 and 1 <= t <= MAX_T and 1 <= c <= 8 and 1 <= m <= t
             and avg_width >= 1):
-        raise ValueError(f"importance_select: kernel takes T <= 64, C <= 8, "
-                         f"1 <= m <= T, got B={b}, T={t}, C={c}, m={m}, "
-                         f"avg_width={avg_width}")
+        raise ValueError(f"importance_select: kernel takes T <= {MAX_T}, "
+                         f"C <= 8, 1 <= m <= T, got B={b}, T={t}, C={c}, "
+                         f"m={m}, avg_width={avg_width}")
     per_warp = _imp_warp_bytes(t, c)
     tile = max(1, min(IMP_MAX_WARPS, -(-b // SMS), SMEM_DEFAULT // per_warp))
     smem = tile * per_warp
     return Geometry(tile=tile, group=32, blocks=-(-b // tile),
                     threads=32 * tile, smem=smem, optin=False,
-                    variant=0 if (c, avg_width) == (3, 8) else 1,
+                    variant=((0 if (c, avg_width) == (3, 8) else 1)
+                             + (2 if t > 32 * IMP_STEPS[0] else 0)),
                     per_sm=_per_sm(32 * tile, smem, 1))
 
 
@@ -304,10 +319,12 @@ def fake_quant_op(x: torch.Tensor, bits: int, per_channel: bool = False,
     out = torch.empty_like(x)
     geo = fake_quant_geometry(x.numel(), c, r // rows_per_group, per_channel,
                               (x.data_ptr() | out.data_ptr()) % 16 == 0)
-    # the cooperative kernels' (variants 2-4) scratch: each block's maxima,
-    # written before they are read, so never zeroed
-    partial = (torch.empty(geo.blocks * (c if per_channel else 1),
-                           dtype=torch.int32, device=x.device)
+    # the cooperative kernels' (variants 2-5) scratch: each block's maxima,
+    # written before they are read, so never zeroed; variant 5 also keeps
+    # the column scales there
+    words = (geo.blocks * (c if per_channel else 1)
+             + (c if geo.variant == 5 else 0))
+    partial = (torch.empty(words, dtype=torch.int32, device=x.device)
                if geo.variant >= 2 else None)
     qmax, rq = fake_quant_constants(bits)
     _launch(op, "fake_quant_launch", x.device, _ptr(x), _ptr(out),

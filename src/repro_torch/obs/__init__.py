@@ -4,9 +4,15 @@
   declared once and held as int32 tensors, exact and merge-able across
   segments;
 * :mod:`repro_torch.obs.trace`: wall-clock spans that wait for the card
-  before closing, exported as Chrome-trace JSON.
+  before closing, exported as Chrome-trace JSON;
+* :mod:`repro_torch.obs.compile_guard`: builds per distinct shape counted,
+  with a budget that raises.
 """
 from . import trace  # noqa: F401
+from .compile_guard import (  # noqa: F401
+    CompileBudgetError, compile_count, compile_counts, compile_event,
+    compile_guard, compile_key_counts, reset_compile_counts,
+)
 from .registry import (  # noqa: F401
     Lane, MetricsSpec, categorical_counts, counter, counter_add,
     counter_value, counters_add, gauge, gauge_set, hist_observe, histogram,

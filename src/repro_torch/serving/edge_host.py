@@ -23,13 +23,15 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.aac import AACTable, select_k
 from ..core.coreset import (ClusterCoreset, SamplingCoreset,
-                            channel_cluster_coresets, importance_coreset,
-                            raw_payload_bytes, sampling_payload_bytes)
+                            channel_cluster_coresets, cluster_payload_bytes,
+                            importance_coreset, raw_payload_bytes,
+                            sampling_payload_bytes)
 from ..core.decision import (D0_MEMO, D2_DNN_QUANT, D3_CLUSTER, D4_SAMPLING,
                              D6_PARTIAL, D7_EARLY_EXIT, D8_STAGED_FULL, DEFER,
                              IntermittentConfig, choose_decision)
@@ -46,7 +48,12 @@ __all__ = ["SeekerNodeState", "SensorStepOut", "seeker_node_init",
            "seeker_sensor_step_given_corr", "seeker_host_step",
            "seeker_simulate", "IntermittentState", "intermittent_node_init",
            "intermittent_fleet_init", "IntermittentLaneOut",
-           "intermittent_lane_step"]
+           "intermittent_lane_step", "fleet_serve_step", "WirePayload",
+           "encode_wire_coresets", "decode_wire_coresets",
+           "wire_payload_nbytes", "wire_payload_to_bytes",
+           "wire_payload_from_bytes", "WireSamplePayload",
+           "encode_wire_samples", "decode_wire_samples",
+           "wire_sample_nbytes"]
 
 
 class SeekerNodeState(NamedTuple):
@@ -423,4 +430,374 @@ def seeker_simulate(windows, labels, harvest, *, signatures, qdnn_params,
             "it_full": fleet["it_full"],
             "it_early": fleet["it_early"],
         })
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Coreset wire format: what crosses from edge to host
+# ---------------------------------------------------------------------------
+
+class WirePayload(NamedTuple):
+    """Quantized cluster-coreset payload as it crosses the wire: int16 center
+    codes, int8 radius codes, int8 counts (the paper's 2 B center / 1 B
+    radius / 4-bit count format, §3.2.2), plus the per-window float ranges
+    needed to dequantize on the host side."""
+
+    c_codes: torch.Tensor    # (B, C, k, 2) int16
+    r_codes: torch.Tensor    # (B, C, k) int8
+    n_codes: torch.Tensor    # (B, C, k) int8
+    lo: torch.Tensor         # (B, 1, 1, 1) center range low
+    hi: torch.Tensor         # (B, 1, 1, 1) center range high
+    rhi: torch.Tensor        # (B, 1, 1) radius range high
+
+
+def encode_wire_coresets(centers: torch.Tensor, radii: torch.Tensor,
+                         counts: torch.Tensor) -> WirePayload:
+    """Quantize per-channel cluster coresets for transmission: centers
+    (B, C, k, 2), radii (B, C, k), counts (B, C, k), the batched output of
+    :func:`repro_torch.core.coreset.channel_cluster_coresets`.  Counts are
+    clipped to the 4-bit field, so the payload is valid by construction."""
+    lo = centers.amin(dim=(1, 2, 3), keepdim=True)
+    hi = centers.amax(dim=(1, 2, 3), keepdim=True)
+    c_codes = torch.round((centers - lo) / torch.clamp(hi - lo, min=1e-9)
+                          * 65535.0 - 32768.0).to(torch.int16)
+    rhi = radii.amax(dim=(1, 2), keepdim=True)
+    r_codes = torch.round(radii / torch.clamp(rhi, min=1e-9) * 255.0
+                          - 128.0).to(torch.int8)
+    n_codes = torch.clamp(counts, 0, 15).to(torch.int8)
+    return WirePayload(c_codes, r_codes, n_codes, lo, hi, rhi)
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _dtype_name(x: torch.Tensor) -> str:
+    """The dtype's name as numpy and JAX print it (``int16``)."""
+    return str(x.dtype).removeprefix("torch.")
+
+
+def _check_coreset_fields(p: WirePayload) -> None:
+    """Dtypes and cross-field shapes of a cluster payload: host-side checks
+    that read no tensor value."""
+    c_codes, r_codes, n_codes = p.c_codes, p.r_codes, p.n_codes
+    _check(c_codes.dtype == torch.int16,
+           f"wire payload c_codes must be int16, got {_dtype_name(c_codes)}")
+    _check(r_codes.dtype == torch.int8,
+           f"wire payload r_codes must be int8, got {_dtype_name(r_codes)}")
+    _check(n_codes.dtype == torch.int8,
+           f"wire payload n_codes must be int8, got {_dtype_name(n_codes)}")
+    _check(c_codes.ndim >= 2 and c_codes.shape[-1] == 2,
+           f"wire payload c_codes must be (..., k, 2) 2-D center codes, "
+           f"got shape {tuple(c_codes.shape)}")
+    _check(tuple(r_codes.shape) == tuple(c_codes.shape[:-1]),
+           f"wire payload r_codes shape {tuple(r_codes.shape)} does not "
+           f"match c_codes {tuple(c_codes.shape)}")
+    _check(n_codes.shape == r_codes.shape,
+           f"wire payload n_codes shape {tuple(n_codes.shape)} does not "
+           f"match r_codes {tuple(r_codes.shape)}")
+    for name, f in (("lo", p.lo), ("hi", p.hi), ("rhi", p.rhi)):
+        _check(torch.as_tensor(f).is_floating_point(),
+               f"wire payload {name} range must be floating, got "
+               f"{_dtype_name(torch.as_tensor(f))}")
+
+
+def _dequantize_coresets(p: WirePayload):
+    centers = ((p.c_codes.to(torch.float32) + 32768.0) / 65535.0
+               * (p.hi - p.lo) + p.lo)
+    radii = (p.r_codes.to(torch.float32) + 128.0) / 255.0 * p.rhi
+    return centers, radii, p.n_codes.to(torch.int32)
+
+
+def decode_wire_coresets(p: WirePayload):
+    """Host-side dequantization; returns (centers, radii, counts int32).
+
+    Defensive, as the host ingests payloads from untrusted radio bytes:
+    dtypes and cross-field shapes, and the 4-bit count range, are checked,
+    and a malformed payload raises ``ValueError``.  On a CUDA tensor the
+    range check is one reduction and one synchronisation; the host server
+    skips it, since its entries come from payloads validated once, when
+    they were encoded or parsed from bytes."""
+    _check_coreset_fields(p)
+    if p.n_codes.numel():
+        lo, hi = torch.stack(torch.aminmax(p.n_codes)).tolist()
+        _check(lo >= 0 and hi <= 15,
+               f"wire payload counts outside the 4-bit field [0, 15]: "
+               f"min {lo}, max {hi}")
+    return _dequantize_coresets(p)
+
+
+def wire_payload_nbytes(k: int, channels: int) -> int:
+    """Bytes the quantized code tensors put on the wire per window
+    (excluding the 3 float range scalars): per channel, k x (2-D int16
+    center + int8 radius + int8 count)."""
+    return channels * cluster_payload_bytes(k, bytes_center=4, bytes_radius=1,
+                                            bits_count=8)
+
+
+# --- byte-level framing: what the host's untrusted ingest parses ----------
+
+_WIRE_MAGIC = 0x5EEC          # "SEEker Coreset"
+_WIRE_VERSION = 1
+_WIRE_HEADER = 20             # 5 x uint32: magic, version, B, C, k
+
+
+def _host_array(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def wire_payload_to_bytes(p: WirePayload) -> bytes:
+    """Serialize a quantized coreset payload to one radio frame: a 20-B
+    header (magic, version, B, C, k) followed by the little-endian code
+    tensors and float ranges."""
+    b, c, k, _ = p.c_codes.shape
+    head = np.asarray([_WIRE_MAGIC, _WIRE_VERSION, b, c, k], "<u4")
+    return b"".join([
+        head.tobytes(),
+        _host_array(p.c_codes).astype("<i2").tobytes(),
+        _host_array(p.r_codes).astype("i1").tobytes(),
+        _host_array(p.n_codes).astype("i1").tobytes(),
+        _host_array(p.lo).astype("<f4").tobytes(),
+        _host_array(p.hi).astype("<f4").tobytes(),
+        _host_array(p.rhi).astype("<f4").tobytes(),
+    ])
+
+
+def wire_payload_from_bytes(buf: bytes) -> WirePayload:
+    """Parse and validate one radio frame into a :class:`WirePayload` of
+    CPU tensors (move them with ``.to(device)``).
+
+    The host's trust boundary: buffer length, header fields, count codes
+    and range floats are all checked, and a malformed frame raises
+    ``ValueError`` with the reason: truncation, bad magic, counts outside
+    the 4-bit field, or non-finite dequantization ranges."""
+    buf = bytes(buf)
+    _check(len(buf) >= _WIRE_HEADER,
+           f"truncated wire frame: {len(buf)} B is shorter than the "
+           f"{_WIRE_HEADER}-B header")
+    magic, version, b, c, k = np.frombuffer(buf[:_WIRE_HEADER], "<u4")
+    _check(magic == _WIRE_MAGIC,
+           f"not a Seeker coreset frame (magic 0x{int(magic):X}, "
+           f"want 0x{_WIRE_MAGIC:X})")
+    _check(version == _WIRE_VERSION,
+           f"unsupported wire version {int(version)} (want {_WIRE_VERSION})")
+    b, c, k = int(b), int(c), int(k)
+    _check(b > 0 and c > 0 and k > 0,
+           f"degenerate wire dims B={b}, C={c}, k={k}")
+    want = _WIRE_HEADER + 6 * b * c * k + 12 * b
+    _check(len(buf) == want,
+           f"truncated/oversized wire frame: {len(buf)} B, B={b} C={c} "
+           f"k={k} needs {want} B")
+
+    off = _WIRE_HEADER
+
+    def take(count, dtype, shape):
+        nonlocal off
+        n = count * np.dtype(dtype).itemsize
+        arr = np.frombuffer(buf[off:off + n], dtype).reshape(shape)
+        off += n
+        return arr
+
+    c_codes = take(b * c * k * 2, "<i2", (b, c, k, 2))
+    r_codes = take(b * c * k, "i1", (b, c, k))
+    n_codes = take(b * c * k, "i1", (b, c, k))
+    lo = take(b, "<f4", (b, 1, 1, 1))
+    hi = take(b, "<f4", (b, 1, 1, 1))
+    rhi = take(b, "<f4", (b, 1, 1))
+    _check(bool((n_codes >= 0).all() and (n_codes <= 15).all()),
+           f"wire frame counts outside the 4-bit field [0, 15]: "
+           f"min {n_codes.min()}, max {n_codes.max()}")
+    _check(bool(np.isfinite(lo).all() and np.isfinite(hi).all()
+                and np.isfinite(rhi).all()),
+           "wire frame dequantization ranges are not finite")
+    _check(bool((hi >= lo).all()),
+           "wire frame center range has hi < lo")
+    return WirePayload(*(torch.from_numpy(a.copy()) for a in
+                         (c_codes, r_codes, n_codes, lo, hi, rhi)))
+
+
+# ---------------------------------------------------------------------------
+# Sampling-coreset wire format (the D4 payload: samples + GAN conditioning)
+# ---------------------------------------------------------------------------
+
+class WireSamplePayload(NamedTuple):
+    """Quantized importance-sampling payload on the wire: int8 time indices
+    (1 B, paper §3.2.2), int16 value codes (2 B per channel) with the
+    per-window dequantization range, and the first and second moments that
+    condition the recovery generator (paper A.1)."""
+
+    idx: torch.Tensor        # (B, m) int8 — selected time indices
+    v_codes: torch.Tensor    # (B, m, C) int16 — quantized sample values
+    lo: torch.Tensor         # (B, 1, 1) value range low
+    hi: torch.Tensor         # (B, 1, 1) value range high
+    mean: torch.Tensor       # (B, C) window mean (generator conditioning)
+    var: torch.Tensor        # (B, C) window variance
+
+
+def encode_wire_samples(indices: torch.Tensor, values: torch.Tensor,
+                        mean: torch.Tensor, var: torch.Tensor
+                        ) -> WireSamplePayload:
+    """Quantize batched sampling coresets for transmission: indices (B, m),
+    values (B, m, C), mean/var (B, C), the fields of
+    :class:`repro_torch.core.coreset.SamplingCoreset`.  Indices must fit the
+    int8 wire field (window length < 128); on a CUDA tensor that check is
+    one reduction and one synchronisation."""
+    if indices.numel():
+        lo_i, hi_i = torch.stack(torch.aminmax(indices)).tolist()
+        _check(lo_i >= 0 and hi_i <= 127,
+               f"sample indices outside the int8 wire field [0, 127]: "
+               f"min {lo_i}, max {hi_i}")
+    lo = values.amin(dim=(1, 2), keepdim=True)
+    hi = values.amax(dim=(1, 2), keepdim=True)
+    v_codes = torch.round((values - lo) / torch.clamp(hi - lo, min=1e-9)
+                          * 65535.0 - 32768.0).to(torch.int16)
+    return WireSamplePayload(indices.to(torch.int8), v_codes, lo, hi,
+                             mean.to(torch.float32), var.to(torch.float32))
+
+
+def _check_sample_fields(p: WireSamplePayload) -> None:
+    idx, v_codes = p.idx, p.v_codes
+    _check(idx.dtype == torch.int8,
+           f"sample payload idx must be int8, got {_dtype_name(idx)}")
+    _check(v_codes.dtype == torch.int16,
+           f"sample payload v_codes must be int16, got "
+           f"{_dtype_name(v_codes)}")
+    _check(v_codes.ndim >= 1
+           and tuple(idx.shape) == tuple(v_codes.shape[:-1]),
+           f"sample payload idx shape {tuple(idx.shape)} does not match "
+           f"v_codes {tuple(v_codes.shape)}")
+    mean, var = p.mean, p.var
+    _check(mean.shape[-1] == v_codes.shape[-1]
+           and var.shape[-1] == v_codes.shape[-1],
+           f"sample payload moments {tuple(mean.shape)}/{tuple(var.shape)} "
+           f"do not match channel dim of v_codes {tuple(v_codes.shape)}")
+
+
+def _dequantize_samples(p: WireSamplePayload):
+    values = ((p.v_codes.to(torch.float32) + 32768.0) / 65535.0
+              * (p.hi - p.lo) + p.lo)
+    return p.idx.to(torch.int32), values, p.mean, p.var
+
+
+def decode_wire_samples(p: WireSamplePayload):
+    """Host-side dequantization; returns (indices int32, values, mean, var).
+    Defensive like :func:`decode_wire_coresets`: dtypes and shapes, and
+    non-negative indices, are checked."""
+    _check_sample_fields(p)
+    if p.idx.numel():
+        lo = int(p.idx.min())
+        _check(lo >= 0,
+               f"sample payload has negative time indices (min {lo})")
+    return _dequantize_samples(p)
+
+
+def wire_sample_nbytes(m: int, channels: int) -> int:
+    """Bytes a sampling payload puts on the wire per window: m x (1-B index
+    + 2-B value per channel) + the 2-B mean/var moments per channel."""
+    return sampling_payload_bytes(m, channels=channels)
+
+
+def _edge_encode_coresets(win: torch.Tensor, k: int) -> WirePayload:
+    """Edge half of a serving tier: per-channel cluster coresets of a
+    (B, T, C) window batch, one ``kmeans_coreset`` launch over the B * C
+    channel clouds, quantized to the wire format."""
+    cs = channel_cluster_coresets(win, k=k, iters=4)
+    return encode_wire_coresets(cs.centers, cs.radii, cs.counts)
+
+
+# ---------------------------------------------------------------------------
+# The fleet's edge -> host tier (single device)
+# ---------------------------------------------------------------------------
+
+def fleet_serve_step(windows, *, host_params, har_cfg: HARConfig, mesh=None,
+                     k: int = 12, noise: dict | None = None,
+                     generator: torch.Generator | None = None,
+                     seed: int = 0, noise_fn=None, host_state=None,
+                     serve_cfg=None, gen_params=None, alive=None,
+                     engine_alive=None, per_shard_host: bool = False,
+                     device=None) -> dict:
+    """The fleet's edge-to-host tier: every node's (N, T, C) window is
+    clustered per channel (one ``kmeans_coreset`` launch over the N * C
+    channel clouds) and quantized to the wire format; only those payloads
+    reach the host.  Two modes, the reference's single-device ones:
+
+    * default: the batch is decoded, recovered and run through the DNN
+      (:func:`repro_torch.host.server.recover_infer_batch`); the cluster
+      recovery draws ``noise`` ``{"dirs": (N, C, T, 2), "radii_u":
+      (N, C, T, 1)}``, or draws them from ``generator`` (default
+      ``manual_seed(0)`` on the device);
+    * ``host_state``/``serve_cfg``/``gen_params`` given: the payloads are
+      enqueued into the host server (deadlines, EDF batches, recovery cache)
+      and served; the recovery noise is keyed by each payload
+      (``seed``/``noise_fn``, see :func:`repro_torch.host.server.host_serve_slot`).
+      ``alive`` (the caller's churn mask) and ``engine_alive`` (one slot of
+      the fleet engine's emitted ``res["alive"]``, brown-outs folded in)
+      compose by AND: a dead node sends no frame.
+
+    The port has no mesh: ``mesh`` must be ``None``, and ``per_shard_host``
+    raises (both wait for the sharded driver, ROADMAP Queue 1 item 4).
+
+    Returns ``wire_bytes`` (the quantized bytes the alive fleet sent;
+    counting them reads the mask once, one synchronisation on a CUDA
+    tensor), ``raw_bytes`` (the raw windows' equivalent), and
+    ``host_logits`` (N, L) or ``host_state``/``slot_output``."""
+    from ..host.server import recover_infer_batch, serve_fleet_payloads
+    from .fleet import resolve_device, to_device
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported: the sharded driver waits for ROADMAP "
+            "Queue 1 item 4; pass mesh=None")
+    if per_shard_host:
+        raise NotImplementedError(
+            "per_shard_host=True (one host server per node shard) needs the "
+            "sharded driver, which waits for ROADMAP Queue 1 item 4")
+    dev = resolve_device(device)
+    windows = to_device(windows, dev, torch.float32)
+    n, t, c = windows.shape
+    if engine_alive is not None:
+        engine_alive = to_device(engine_alive, dev, torch.bool)
+        if tuple(engine_alive.shape) != (n,):
+            raise ValueError(f"engine_alive must be (N,)=({n},), got "
+                             f"{tuple(engine_alive.shape)}")
+        alive = engine_alive if alive is None else \
+            to_device(alive, dev, torch.bool) & engine_alive
+    if alive is not None:
+        alive = to_device(alive, dev, torch.bool)
+        if tuple(alive.shape) != (n,):
+            raise ValueError(f"alive must be (N,)=({n},), got "
+                             f"{tuple(alive.shape)}")
+        if host_state is None:
+            raise ValueError("alive/engine_alive is a queue-mode argument: "
+                             "without a host_state there is no queue to "
+                             "keep dead nodes out of")
+
+    payload = _edge_encode_coresets(windows, k)
+    n_tx = n if alive is None else int(alive.sum())        # frames sent
+    out = {
+        "wire_bytes": n_tx * wire_payload_nbytes(k, c),
+        "raw_bytes": n * raw_payload_bytes(t) * c,
+    }
+    if host_state is None:
+        if noise is None:
+            g = generator or torch.Generator(device=dev).manual_seed(0)
+            noise = {"dirs": torch.randn((n, c, t, 2), generator=g,
+                                         device=dev),
+                     "radii_u": torch.rand((n, c, t, 1), generator=g,
+                                           device=dev)}
+        noise = to_device(noise, dev, torch.float32)
+        out["host_logits"] = recover_infer_batch(payload, host_params, noise,
+                                                 t)
+        return out
+    if serve_cfg is None or gen_params is None:
+        raise ValueError("fleet_serve_step host_state mode needs serve_cfg "
+                         "and gen_params")
+    state, slot_out = serve_fleet_payloads(
+        host_state, payload, torch.arange(n, dtype=torch.int32, device=dev),
+        cfg=serve_cfg, host_params=host_params, gen_params=gen_params,
+        seed=seed, noise_fn=noise_fn, mask=alive)
+    out["host_state"] = state
+    out["slot_output"] = slot_out
     return out

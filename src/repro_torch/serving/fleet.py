@@ -821,7 +821,7 @@ def seeker_fleet_simulate_streamed(
     if mesh is not None:
         raise NotImplementedError(
             "mesh= is not ported: the sharded driver waits for ROADMAP "
-            "Queue 1 item 11; pass mesh=None")
+            "Queue 1 item 4; pass mesh=None")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     dev = resolve_device(device)

@@ -257,7 +257,7 @@ def test_task_and_telemetry_run_and_mesh_raises(setup, lane):
     args = (np.asarray(d["wins"]), np.asarray(d["harvest"]))
     if lane == "mesh":
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 11"):
+                           match="ROADMAP Queue 1 item 4"):
             repro_torch.seeker_fleet_simulate_streamed(
                 *args, chunk=2, mesh=object(), device="cpu", **d["port"])
         return

@@ -363,11 +363,13 @@ def test_geometry_fleet_shapes_are_one_wave(nodes):
 
 
 _CORR_SHAPES = [(b, l, t, c) for b in (1, 13, 3000, 250_000)
-                for t, c in ((1, 1), (37, 1), (60, 3), (61, 2), (64, 4))
+                for t, c in ((1, 1), (37, 1), (60, 3), (61, 2), (64, 4),
+                             (65, 1), (120, 1), (128, 4))
                 for l in (1, 12, 47)
                 if (l * t * c + l * c) * 4 <= 48 * 1024]
 _KMEANS_SHAPES = [(b, n, d, k) for b in (1, 999, 9000)
-                  for n in (1, 13, 37, 60, 64) for d in (1, 2, 3, 4)
+                  for n in (1, 13, 37, 60, 64, 65, 120, 128)
+                  for d in (1, 2, 3, 4)
                   for k in (1, 5, 12, 16, 17, 32)]
 
 
@@ -390,9 +392,11 @@ def test_geometry_covers_the_accepted_range(kernel):
             assert geo.threads >= min(geo.tile * l, 1024)
         else:
             n, d, k = shape[1:]
-            kmax, dmax, _ = ops.KMEANS_VARIANTS[geo.variant]
-            assert k <= kmax and d <= dmax
-            assert geo.variant == (0 if k <= 16 and d <= 2 else 1)
+            kmax, dmax, nmax, _ = ops.KMEANS_VARIANTS[geo.variant]
+            assert k <= kmax and d <= dmax and n <= nmax
+            small = k <= 16 and d <= 2
+            assert geo.variant == ((0 if small else 1) if n <= 64
+                                   else (2 if d <= 2 else 3))
             assert geo.tile * geo.group == geo.threads
 
 
@@ -401,6 +405,8 @@ def test_geometry_opt_in_above_48_kb():
     # tile, need more than the default 48 KB
     km = ops.kmeans_coreset_geometry(999, 64, 4, 32)
     assert km.variant == 1 and km.optin and km.smem == 57_888
+    km = ops.kmeans_coreset_geometry(999, 128, 4, 32)
+    assert km.variant == 3 and km.optin and km.smem == 66_080
     corr = ops.signature_corr_geometry(250_000, 47, 64, 4)
     assert corr.optin and corr.smem <= 227 * 1024
 
@@ -441,7 +447,10 @@ _FQ_SHAPES = [(numel, cols, groups, per_channel, aligned)
               for numel, cols in ((groups * size, 3 if size % 3 == 0 else 1),)
               for per_channel in (False, True)
               for aligned in (False, True)
-              if not per_channel or groups == 1]
+              if not per_channel or groups == 1] + [
+    (rows * cols, cols, 1, True, aligned)
+    for rows, cols in ((4096, 4096), (1, 4097), (256, 8192), (3, 100_003))
+    for aligned in (False, True)]
 
 
 def test_fake_quant_geometry_covers_the_accepted_range():
@@ -453,9 +462,10 @@ def test_fake_quant_geometry_covers_the_accepted_range():
         assert geo.per_sm == ops.FQ_PER_SM, case
         size = numel // groups
         if per_channel:
-            assert geo.variant == 4, case
+            wide = cols > ops.FQ_MAX_COLS
+            assert geo.variant == (5 if wide else 4), case
             assert 1 <= geo.blocks <= ops.SMS, case        # co-resident
-            assert geo.smem == 4 * cols <= 48 * 1024, case
+            assert geo.smem == (0 if wide else 4 * cols) <= 48 * 1024, case
         elif groups == 1:
             vec = aligned and size % 4 == 0
             assert geo.variant == (2 if vec else 3), case
@@ -474,7 +484,7 @@ def test_fake_quant_geometry_covers_the_accepted_range():
 
 @pytest.mark.parametrize("args", [
     (0, 3, 1, False, True), (10, 3, 1, False, True), (12, 3, 5, False, True),
-    (12, 0, 1, False, True), (8192, 4097, 1, True, True),
+    (12, 0, 1, False, True), (8192, 3, 1, True, True),
     (60, 3, 2, True, True), (2 ** 31 * 3, 3, 1, False, True)])
 def test_fake_quant_geometry_rejects_out_of_range(args):
     with pytest.raises(ValueError, match="fake_quant: kernel takes"):
@@ -482,7 +492,8 @@ def test_fake_quant_geometry_rejects_out_of_range(args):
 
 
 _IMP_SHAPES = [(b, t, c, m, width) for b in (1, 13, 3000, 250_000)
-               for t, c in ((1, 1), (37, 3), (60, 3), (64, 5), (64, 8))
+               for t, c in ((1, 1), (37, 3), (60, 3), (64, 5), (64, 8),
+                            (65, 3), (120, 1), (128, 8))
                for m in sorted({1, min(20, t), t})
                for width in (1, 5, 8)]
 
@@ -498,33 +509,96 @@ def test_importance_geometry_covers_the_accepted_range():
         assert geo.smem <= 48 * 1024 and not geo.optin, shape
         per_warp = 4 * (-(-t * c // 4) * 4 + -(-t // 4) * 4)
         assert geo.smem == geo.tile * per_warp, shape
-        assert geo.variant == (0 if (c, width) == (3, 8) else 1), shape
+        assert geo.variant == ((0 if (c, width) == (3, 8) else 1)
+                               + (2 if t > 64 else 0)), shape
         if b <= ops.SMS * min(ops.IMP_MAX_WARPS, 48 * 1024 // per_warp):
             assert geo.waves == 1, shape
 
 
-@pytest.mark.parametrize("shape", [(10, 65, 3, 8, 8), (10, 60, 9, 8, 8),
+@pytest.mark.parametrize("shape", [(10, 129, 3, 8, 8), (10, 60, 9, 8, 8),
                                    (10, 60, 3, 0, 8), (10, 60, 3, 61, 8),
                                    (10, 60, 3, 8, 0), (0, 60, 3, 8, 8)])
 def test_importance_geometry_rejects_out_of_range(shape):
-    with pytest.raises(ValueError, match="T <= 64, C <= 8"):
+    with pytest.raises(ValueError, match="T <= 128, C <= 8"):
         ops.importance_select_geometry(*shape)
 
 
-@pytest.mark.parametrize("shape", [(10, 12, 65, 3), (10, 12, 60, 5),
+@pytest.mark.parametrize("shape", [(10, 12, 129, 3), (10, 12, 60, 5),
                                    (10, 48, 64, 4), (10, 0, 60, 3),
                                    (10, 12, 0, 3)])
 def test_signature_corr_geometry_rejects_out_of_range(shape):
-    with pytest.raises(ValueError, match="T <= 64, C <= 4"):
+    with pytest.raises(ValueError, match="T <= 128, C <= 4"):
         ops.signature_corr_geometry(*shape)
 
 
-@pytest.mark.parametrize("shape", [(10, 65, 2, 12), (10, 60, 5, 12),
+@pytest.mark.parametrize("shape", [(10, 129, 2, 12), (10, 60, 5, 12),
                                    (10, 60, 2, 33), (10, 60, 2, 0),
                                    (10, 0, 2, 4)])
 def test_kmeans_geometry_rejects_out_of_range(shape):
-    with pytest.raises(ValueError, match="N <= 64, D <= 4, k <= 32"):
+    with pytest.raises(ValueError, match="N <= 128, D <= 4, k <= 32"):
         ops.kmeans_coreset_geometry(*shape)
+
+
+# ---------------------------------------------------------------------------
+# The bearing config's shapes: 120-sample windows, one channel, k = 18
+# (repro.configs.seeker_har.BEARING, SYSTEM.bearing_clusters), and a
+# per-channel quantizer wider than a block's shared memory holds
+# ---------------------------------------------------------------------------
+
+BEARING_T, BEARING_K = 120, 18
+
+
+def test_geometry_takes_the_bearing_shapes():
+    corr = ops.signature_corr_geometry(3000, 10, BEARING_T, 1)
+    km = ops.kmeans_coreset_geometry(3000, BEARING_T, 2, BEARING_K)
+    imp = ops.importance_select_geometry(3000, BEARING_T, 1, 20, 8)
+    fq = ops.fake_quant_geometry(256 * 8192, 8192, 1, True, True)
+    assert corr.variant == 1 and corr.waves == 1
+    assert ops.KMEANS_VARIANTS[km.variant][:3] == (32, 2, 128)
+    assert km.waves == 1 and not km.optin
+    assert imp.variant == 3 and imp.waves == 1
+    assert fq.variant == 5 and fq.blocks == ops.SMS and fq.smem == 0
+    # the fleet's shapes keep their instantiations
+    assert ops.kmeans_coreset_geometry(9000, 60, 2, 12).variant == 0
+    assert ops.importance_select_geometry(3000, 60, 3, 20, 8).variant == 0
+
+
+def test_bearing_shapes_plain_match_jax():
+    """The CPU path of each op at the bearing shapes against the JAX op
+    (Pallas in interpret mode), at this file's tolerances."""
+    w = _normal(21, (6, BEARING_T, 1))
+    s = _normal(22, (10, BEARING_T, 1))
+    np.testing.assert_allclose(
+        ops.signature_corr_op(_t(w), _t(s)).numpy(),
+        np.asarray(signature_corr_op(w, s, impl="pallas")), **CORR_TOL)
+
+    t = np.linspace(0.0, 1.0, BEARING_T, dtype=np.float32)
+    pts = np.stack([np.broadcast_to(t, (6, BEARING_T)), w[..., 0]], -1)
+    c1, r1, n1 = ops.kmeans_coreset_op(_t(pts), BEARING_K)
+    c2, r2, n2 = kmeans_coreset_op(pts, k=BEARING_K, impl="pallas")
+    np.testing.assert_allclose(c1.numpy(), np.asarray(c2), **KMEANS_TOL)
+    np.testing.assert_allclose(r1.numpy(), np.asarray(r2), **KMEANS_TOL)
+    np.testing.assert_array_equal(n1.numpy(), np.asarray(n2))
+
+    i1, v1, w1 = ops.importance_select_op(_t(w), 20)
+    i2, v2, w2 = importance_select_op(w, m=20, impl="pallas")
+    np.testing.assert_array_equal(i1.numpy(), np.asarray(i2))
+    np.testing.assert_allclose(v1.numpy(), np.asarray(v2), **IMP_VALS_TOL)
+    np.testing.assert_allclose(w1.numpy(), np.asarray(w2), **IMP_WEIGHTS_TOL)
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_quant_per_channel_wide_plain_matches_jax(bits):
+    x = _normal(23, (4, 8192), 3.0) * np.linspace(
+        0.5, 2.0, 8192, dtype=np.float32)
+    x = x.astype(np.float32)
+    got = ops.fake_quant_op(_t(x), bits, per_channel=True).numpy()
+    want = np.asarray(jax.jit(ref.fake_quant_ref, static_argnums=(1, 2))(
+        x, bits, True))
+    np.testing.assert_allclose(got, want, **QUANT_TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(fake_quant_op(x, bits, per_channel=True,
+                                      impl="pallas")), **QUANT_TOL)
 
 
 def test_ptxas_report_reads_registers_and_spills():
