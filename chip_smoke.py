@@ -66,7 +66,21 @@ Phases (any failure exits non-zero and prints no result):
    counts exactly equal and its codes within one code; a frame must
    round-trip exactly; each with ms/slot, device time and launches a slot,
    and its synchronisations counted by CUDA's sync debug mode;
-9. the kernel table as one JSON line, then the result line.
+9. the sharded fleet driver: (a) at world size 1 on NCCL (a ``FileStore``
+   under ``build/``), the card's own layout, at N=3000, S=8 with every lane
+   (churn, brown-out, intermittent, task, telemetry, labels):
+   ``seeker_fleet_simulate_sharded`` must equal the single-device engine
+   with the same generator seed on every integer trace, aggregate and
+   telemetry lane and launch the same kernels as often, and
+   ``fleet_serve_step(mesh=..., per_shard_host=True)`` must equal the
+   single-device queue mode on phase 8's server, and
+   ``edge_host_serve_step`` on a (1, 1) ("pod", "data") mesh the direct
+   serve step's logits bit for bit; (b) 4 gloo ranks sharing
+   the card (this script again, ``--sharded-rank``) on a (2, 2) ("pod",
+   "data") mesh at N=3001 (3 padding nodes), S=4, each rank's result equal
+   to a one-rank run; with ms/slot, device busy, launches and
+   synchronisations a slot, and the collectives' time;
+10. the kernel table as one JSON line, then the result line.
 """
 import json
 import subprocess
@@ -87,6 +101,8 @@ MIXED_SLOTS = 32
 STREAM_SLOTS, STREAM_CHUNK = 32, 4
 IMPORTANCE_M = 20              # the HAR sampling points
 HOST_K, HOST_SLOTS = 12, 8     # phase 8: HAR's k, and the slots served
+# phase 9 (b): gloo ranks sharing the card, a fleet that does not divide
+SHARD_RANKS, SHARD_GLOO_N, SHARD_GLOO_SLOTS = 4, 3001, 4
 # configs/seeker_har.py BEARING: 120-sample windows, 1 channel, and
 # SYSTEM.bearing_clusters
 BEARING_T, BEARING_K = 120, 18
@@ -496,10 +512,21 @@ def phase_kernels(torch, dev) -> dict:
     got_wide = ops.fake_quant_op(wide, 16, per_channel=True)
     _assert_same_bits(torch, got_wide, want_wide, "fake_quant (256, 8192)")
     bound, by = _bound_ms(2 * 4 * wide.numel(), 7 * wide.numel())
+    wide_zero_points = torch.zeros(wide.shape[1], dtype=torch.int32,
+                                   device=dev)
+
+    def wide_library():
+        # the scale chain and fake_quantize_per_channel_affine, as for the
+        # per-node calls above (a yardstick: not bit-equal)
+        return torch.fake_quantize_per_channel_affine(
+            wide, ref.fake_quant_scale(wide, 16, True, wide.shape[0]),
+            wide_zero_points, 1, -32767, 32767)
+
     times, _ = _timings(
         torch, lambda: ops.fake_quant_op(wide, 16, per_channel=True),
         "fake_quant", lambda: _fake_quant_plain(ref, wide, 16,
-                                                per_channel=True))
+                                                per_channel=True),
+        wide_library)
     bearing["fake_quant"] = dict(shape=[256, 8192], per_channel=True,
                                  max_abs_err=0.0, bound_ms=bound,
                                  bound_by=by, **times)
@@ -1399,6 +1426,347 @@ def phase_host_serve(torch, dev, feed) -> dict:
     return out
 
 
+def _sharded_inputs(torch, dev, n: int, s: int):
+    """Phase 9's fleet, the same on every rank from seed 9: per-node HAR
+    streams with labels, phase 5's scarce harvest, churn, brown-out and
+    intermittent lane, the task lane (round robin) and telemetry."""
+    import repro_torch
+    from repro_torch.configs.seeker_har import HAR
+    from repro_torch.core.decision import IntermittentConfig
+    from repro_torch.core.energy import (BrownoutConfig, fleet_alive_traces,
+                                         fleet_harvest_traces)
+    from repro_torch.core.recovery import init_generator
+    from repro_torch.data.sensors import class_signatures, har_stream
+    from repro_torch.models.har import har_aux_init, har_init
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    params = har_init(g, HAR)
+    windows, labels = har_stream(g, s, streams=n)             # (N, S, T, C)
+    harvest = fleet_harvest_traces(g, n, s) * SCARCITY
+    kw = dict(
+        signatures=class_signatures(device=dev), qdnn_params=params,
+        host_params=params,
+        gen_params=init_generator(g, HAR.window, HAR.channels), har_cfg=HAR,
+        aux_params=har_aux_init(g, HAR), initial_uj=INITIAL_UJ,
+        brownout=BrownoutConfig(*BROWNOUT_UJ),
+        intermittent=IntermittentConfig(min_exit_stage=1, exit_threshold=0.0),
+        task=repro_torch.TaskLaneConfig(), telemetry=True,
+        labels=labels.T.contiguous(), alive=fleet_alive_traces(g, n, s),
+        device=dev)
+    return windows, harvest, kw
+
+
+def _sharded_ints(res) -> dict:
+    """What phase 9 holds equal across layouts: the integer and energy
+    traces, the aggregates and the telemetry lanes, on the CPU."""
+    keys = ("decisions", "payload_bytes", "stored_uj", "k_trace", "alive",
+            "brownout", "it_emit", "it_stage", "preds", "bytes_on_wire_exact",
+            "decision_histogram", "completed", "alive_slots",
+            "brownout_slots", "brownout_events", "it_full", "it_early",
+            "correct", "completed_by_task", "deadline_miss_by_task",
+            "final_brownout")
+    out = {k: res[k].cpu() for k in keys}
+    out.update({f"telemetry/{k}": v.cpu()
+                for k, v in res["telemetry"].items()})
+    out["final_stored_uj"] = res["final_state"].stored_uj.cpu()
+    return out
+
+
+def _collectives(torch, run, secs: float) -> dict:
+    """``run()`` under the profiler: the host time of the collectives
+    (``c10d::`` ops) and the device time of NCCL's kernels, and the host
+    time's share of ``secs``, the run's host clock without the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    on_device = [e for e in rows if e.device_type == DeviceType.CUDA]
+    host = sum(e.cpu_time_total for e in rows if e.key.startswith("c10d::"))
+    dev = sum(_self_device_us(e) for e in on_device
+              if "nccl" in e.key.lower())
+    return dict(collective_host_ms=host / 1e3,
+                collective_device_ms=dev / 1e3,
+                collective_host_share=host / 1e6 / secs,
+                device_busy_ms=sum(map(_self_device_us, on_device)) / 1e3,
+                kernel_launches=sum(e.count for e in on_device),
+                ops={e.key: e.count for e in rows
+                     if e.key.startswith(("c10d::", "nccl:", "gloo:"))})
+
+
+def _sharded_rank(argv) -> int:
+    """One of phase 9's gloo ranks sharing the card (started by
+    :func:`phase_sharded` as ``chip_smoke.py --sharded-rank R WORLD STORE
+    OUT DEVICE``): the N=3001 fleet on a (2, WORLD/2) ("pod", "data") mesh
+    on DEVICE, twice (the second timed and profiled), written to OUT."""
+    import torch
+    import torch.distributed as dist
+    rank, world, store, out, dev = argv[:5]
+    rank, world, dev = int(rank), int(world), torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, str(REPO / "src"))
+    import repro_torch
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import make_mesh
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((2, world // 2), ("pod", "data"), dev.type)
+        windows, harvest, kw = _sharded_inputs(torch, dev, SHARD_GLOO_N,
+                                               SHARD_GLOO_SLOTS)
+
+        def run():
+            return repro_torch.seeker_fleet_simulate_sharded(
+                windows, harvest, mesh=mesh, node_block=None,
+                generator=torch.Generator(device=dev).manual_seed(10), **kw)
+
+        ops.reset_launch_counts()
+        res = run()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        dist.barrier()
+        syncs, secs = _count_syncs(torch, run)
+        dist.barrier()
+        coll = _collectives(torch, run, secs)
+        torch.save(dict(ints=_sharded_ints(res), launches=launches,
+                        seconds=secs, syncs=syncs, collectives=coll,
+                        padded_nodes=res["padded_nodes"],
+                        node_axes=res["node_axes"]), out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_sharded(torch, dev) -> dict:
+    """The sharded fleet driver: (a) at world size 1 on NCCL, the card's
+    own layout, N=3000, S=8 with every lane, against the single-device
+    engine with the same generator seed (every output bitwise, the same
+    kernel launches), and the per-shard host serve step against the
+    single-device queue mode; (b) 4 gloo ranks sharing the card on a
+    (2, 2) mesh at N=3001 (3 padding nodes), S=4, against a one-rank run."""
+    import shutil
+    import torch.distributed as dist
+    import repro_torch
+    from repro_torch.host import (host_server_init, host_server_init_stacked,
+                                  host_server_stats)
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import make_mesh
+
+    n, s = N_NODES, N_SLOTS
+    store = REPO / "build" / "sharded_store"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store / "nccl"),
+                                                         1),
+                            rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = make_mesh((1,), ("data",), "cuda")
+        windows, harvest, kw = _sharded_inputs(torch, dev, n, s)
+
+        def single():
+            return repro_torch.seeker_fleet_simulate(
+                windows, harvest,
+                generator=torch.Generator(device=dev).manual_seed(10), **kw)
+
+        def sharded():
+            return repro_torch.seeker_fleet_simulate_sharded(
+                windows, harvest, mesh=mesh,
+                generator=torch.Generator(device=dev).manual_seed(10), **kw)
+
+        ops.reset_launch_counts()
+        want = single()
+        torch.cuda.synchronize()
+        single_launches = ops.launch_counts()
+        ops.reset_launch_counts()
+        got = sharded()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        print(f"sharded (a) launches {launches}, single-device "
+              f"{single_launches}")
+        assert launches == single_launches, (launches, single_launches)
+        assert got["padded_nodes"] == 0 and got["node_axes"] == ("data",)
+        a, b = _sharded_ints(got), _sharded_ints(want)
+        for k in b:
+            assert torch.equal(a[k], b[k]), k
+        logit_err = float((got["logits"] - want["logits"]).abs().max())
+        hist = b["decision_histogram"]
+        syncs, secs = _count_syncs(torch, sharded)
+        single_syncs, single_secs = _count_syncs(torch, single)
+        profile = _profile(torch, sharded, s, secs, "sharded")
+        coll = _collectives(torch, sharded, secs)
+        print(f"sharded (a) N={n} S={s} on NCCL, world size 1: {len(b)} "
+              f"integer traces, aggregates and telemetry lanes equal to the "
+              f"single-device engine's; logits within {logit_err:.3g}; "
+              f"{secs / s * 1e3:.3f} ms/slot against "
+              f"{single_secs / s * 1e3:.3f} single-device; "
+              f"{syncs / s:g} synchronisations/slot "
+              f"({single_syncs / s:g} single-device); "
+              f"collectives {coll['collective_host_ms']:.3f} ms host "
+              f"({coll['collective_host_share']:.4f} of the run), "
+              f"{coll['collective_device_ms']:.3f} ms device; histogram "
+              f"D0..D8 {hist.tolist()}, brown-out events "
+              f"{int(b['brownout_events'])}")
+        out["world1"] = dict(
+            nodes=n, slots=s, backend="nccl", launches=launches,
+            equal_keys=sorted(b), max_logit_err=logit_err,
+            ms_per_slot=secs / s * 1e3,
+            single_device_ms_per_slot=single_secs / s * 1e3,
+            syncs_per_slot=syncs / s,
+            single_device_syncs_per_slot=single_syncs / s, profile=profile,
+            collectives=coll,
+            decision_histogram=hist.tolist())
+
+        # the per-shard host at world size 1 is one server over the fleet:
+        # the single-device queue mode's
+        cfg = _host_cfg(torch)
+        alive = want["alive"]
+        wins = windows[:, :HOST_SLOTS]
+
+        def serve(per_shard):
+            state = (host_server_init_stacked(cfg, 1, dev) if per_shard
+                     else host_server_init(cfg, dev))
+            qos, outs = None, []
+            for t in range(HOST_SLOTS):
+                r = repro_torch.fleet_serve_step(
+                    wins[:, t], host_params=kw["host_params"],
+                    har_cfg=kw["har_cfg"], k=HOST_K, host_state=state,
+                    serve_cfg=cfg, gen_params=kw["gen_params"],
+                    engine_alive=alive[t], device=dev,
+                    **(dict(mesh=mesh, per_shard_host=True) if per_shard
+                       else {}))
+                state, qos = r["host_state"], r.get("qos")
+                outs.append(r["slot_output"])
+            return state, outs, qos, r.get("telemetry")
+
+        ops.reset_launch_counts()
+        st_ps, outs_ps, qos, tel = serve(True)
+        torch.cuda.synchronize()
+        serve_launches = ops.launch_counts()
+        st_q, outs_q, _, _ = serve(False)
+        row = type(st_q)(*(None if f is None else _first_row(f)
+                           for f in st_ps))
+        stats = host_server_stats(st_q, cfg)
+        assert qos == {k: stats[k] for k in ("served", "deadline_misses",
+                                             "drops_overflow")}, (qos, stats)
+        for name, lane in st_q.metrics.items():
+            assert torch.equal(tel[name], lane), name
+            assert torch.equal(row.metrics[name], lane), name
+        for x, y in zip(outs_ps, outs_q):
+            for a_, b_ in zip(x, y):
+                assert torch.equal(a_, b_)
+        serve_syncs, serve_secs = _count_syncs(torch, lambda: serve(True))
+        print(f"sharded (a) per-shard host, {HOST_SLOTS} slots: QoS {qos} "
+              f"and telemetry equal to the single-device queue mode; "
+              f"launches {serve_launches}; {serve_secs / HOST_SLOTS * 1e3:.3f}"
+              f" ms/slot, {serve_syncs / HOST_SLOTS:g} synchronisations/slot")
+        out["per_shard_host"] = dict(
+            slots=HOST_SLOTS, qos=qos, launches=serve_launches,
+            ms_per_slot=serve_secs / HOST_SLOTS * 1e3,
+            syncs_per_slot=serve_syncs / HOST_SLOTS)
+
+        # the pod-paired step on a (1, 1) mesh pairs the pod with itself:
+        # fleet_serve_step's direct mode, bit for bit
+        pods = make_mesh((1, 1), ("pod", "data"), "cuda")
+        win0 = windows[:, 0].contiguous()
+        ops.reset_launch_counts()
+        paired = repro_torch.edge_host_serve_step(
+            win0, mesh=pods, k=HOST_K,
+            generator=torch.Generator(device=dev).manual_seed(11),
+            **{k: kw[k] for k in ("signatures", "qdnn_params", "host_params",
+                                  "gen_params", "har_cfg", "device")})
+        torch.cuda.synchronize()
+        paired_launches = ops.launch_counts()
+        direct = repro_torch.fleet_serve_step(
+            win0, host_params=kw["host_params"], har_cfg=kw["har_cfg"],
+            k=HOST_K, generator=torch.Generator(device=dev).manual_seed(11),
+            device=dev)["host_logits"]
+        assert torch.equal(paired, direct)
+        assert paired_launches["kmeans_coreset"] == 1, paired_launches
+        print(f"sharded (a) edge_host_serve_step on a (1, 1) pod mesh, "
+              f"{n} windows: logits bitwise the direct serve step's; "
+              f"launches {paired_launches}")
+        out["edge_host"] = dict(windows=n, launches=paired_launches)
+
+        # (b) the one-rank run the gloo ranks are held to
+        gn, gs = SHARD_GLOO_N, SHARD_GLOO_SLOTS
+        g_windows, g_harvest, g_kw = _sharded_inputs(torch, dev, gn, gs)
+        one = _sharded_ints(repro_torch.seeker_fleet_simulate_sharded(
+            g_windows, g_harvest, mesh=mesh,
+            generator=torch.Generator(device=dev).manual_seed(10), **g_kw))
+        del g_windows, g_harvest, g_kw
+    finally:
+        dist.destroy_process_group()
+
+    world = SHARD_RANKS
+    files = [store / f"rank{r}.pt" for r in range(world)]
+    logs = [open(store / f"rank{r}.log", "w") for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--sharded-rank",
+         str(r), str(world), str(store / "gloo"), str(files[r]), str(dev)],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p, log in zip(procs, logs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    wall = time.perf_counter() - t0
+    failed = [r for r, p in enumerate(procs) if p.returncode]
+    for r in failed:
+        print((store / f"rank{r}.log").read_text()[-3000:])
+    assert not failed, f"gloo ranks {failed} failed"
+    ranks = [torch.load(f, weights_only=False) for f in files]
+    for r, res in enumerate(ranks):
+        assert res["padded_nodes"] == (-gn) % world, res["padded_nodes"]
+        for k in one:
+            assert torch.equal(res["ints"][k], one[k]), (r, k)
+    launches_b = [res["launches"] for res in ranks]
+    colls = [res["collectives"] for res in ranks]
+    print(f"sharded (b) {world} gloo ranks on one card, N={gn} S={gs}, "
+          f"{ranks[0]['padded_nodes']} padding nodes, mesh "
+          f"{ranks[0]['node_axes']}: every rank's {len(one)} traces, "
+          f"aggregates and telemetry lanes equal to the one-rank run; "
+          f"ms/slot per rank "
+          f"{[round(r['seconds'] / gs * 1e3, 3) for r in ranks]}; "
+          f"device busy ms/slot "
+          f"{[round(c['device_busy_ms'] / gs, 4) for c in colls]}; "
+          f"synchronisations/slot {[r['syncs'] / gs for r in ranks]}; "
+          f"collectives' host share "
+          f"{[round(c['collective_host_share'], 3) for c in colls]}; "
+          f"launches {launches_b[0]}; {wall:.1f} s with start-up")
+    out["gloo_ranks"] = dict(
+        ranks=world, nodes=gn, slots=gs, padded_nodes=ranks[0]["padded_nodes"],
+        mesh=list(ranks[0]["node_axes"]), equal_keys=sorted(one),
+        launches_per_rank=launches_b,
+        ms_per_slot=[r["seconds"] / gs * 1e3 for r in ranks],
+        syncs_per_slot=[r["syncs"] / gs for r in ranks],
+        device_busy_ms_per_slot=[r["collectives"]["device_busy_ms"] / gs
+                                 for r in ranks],
+        kernel_launches_per_slot=[r["collectives"]["kernel_launches"] / gs
+                                  for r in ranks],
+        collectives=[r["collectives"] for r in ranks], wall_seconds=wall)
+    return out
+
+
+def _first_row(x):
+    """Row 0 of a stacked state (tensors, named tuples, dicts)."""
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_first_row(v) for v in x))
+    if isinstance(x, dict):
+        return {k: _first_row(v) for k, v in x.items()}
+    return x[0]
+
+
 def main() -> int:
     import torch
     smi = phase_card(torch)
@@ -1412,6 +1780,7 @@ def main() -> int:
     task_fleet = phase_task_fleet(torch, dev)
     streamed = phase_streamed(torch, dev)
     host_serve = phase_host_serve(torch, dev, feed)
+    sharded = phase_sharded(torch, dev)
     # each kernel's launches on every path, each counted from zero;
     # ``launches`` is its main path's: the fleet's three, and the sampler's
     # entry point
@@ -1421,7 +1790,12 @@ def main() -> int:
                "streamed": streamed["launches"]["streamed"],
                "host_serve_fleet": host_serve["fleet_queue_mode"]["launches"],
                "host_serve_underprovisioned":
-                   host_serve["underprovisioned"]["launches"]}
+                   host_serve["underprovisioned"]["launches"],
+               "sharded": sharded["world1"]["launches"],
+               "sharded_per_shard_host": sharded["per_shard_host"]["launches"],
+               "sharded_edge_host": sharded["edge_host"]["launches"],
+               "sharded_gloo_rank0":
+                   sharded["gloo_ranks"]["launches_per_rank"][0]}
     launches = dict(fleet_launches,
                     importance_select=importance["importance_select"])
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -1434,7 +1808,8 @@ def main() -> int:
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, kernels=kernels, timing=extra, ptxas=ptxas,
              fleet=fleet, scarce_fleet=scarce, task_fleet=task_fleet,
-             streamed=streamed, host_serve=host_serve), indent=1))
+             streamed=streamed, host_serve=host_serve, sharded=sharded),
+        indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1444,4 +1819,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(_sharded_rank(sys.argv[2:]))
     sys.exit(main())

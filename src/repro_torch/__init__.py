@@ -7,7 +7,8 @@ function against its JAX twin.  It imports neither JAX nor ``repro``.
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 from .serving import (  # noqa: F401
-    TaskLaneConfig, fleet_serve_step, fleet_task_assignment,
-    fleet_telemetry_spec, seeker_fleet_simulate,
-    seeker_fleet_simulate_streamed, seeker_simulate, stack_task_params,
+    TaskLaneConfig, edge_host_serve_step, fleet_serve_step,
+    fleet_task_assignment, fleet_telemetry_spec, seeker_fleet_simulate,
+    seeker_fleet_simulate_sharded, seeker_fleet_simulate_streamed,
+    seeker_simulate, stack_task_params,
 )

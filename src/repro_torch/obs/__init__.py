@@ -17,5 +17,5 @@ from .registry import (  # noqa: F401
     Lane, MetricsSpec, categorical_counts, counter, counter_add,
     counter_value, counters_add, gauge, gauge_set, hist_observe, histogram,
     int_pair_sum, int_pair_total, lane_edges, metrics_init, metrics_merge,
-    metrics_summary, percentile_from_hist, spec_union,
+    metrics_psum, metrics_summary, percentile_from_hist, spec_union,
 )

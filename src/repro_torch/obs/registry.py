@@ -25,7 +25,7 @@ import torch
 
 __all__ = ["Lane", "MetricsSpec", "counter", "gauge", "histogram",
            "metrics_init", "counter_add", "counters_add", "gauge_set",
-           "hist_observe", "metrics_merge", "counter_value",
+           "hist_observe", "metrics_psum", "metrics_merge", "counter_value",
            "int_pair_total", "int_pair_sum", "categorical_counts",
            "lane_edges", "percentile_from_hist", "metrics_summary",
            "spec_union"]
@@ -259,6 +259,24 @@ def categorical_counts(values, bins: int, mask=None) -> torch.Tensor:
     return torch.zeros((bins,), dtype=torch.int32, device=v.device
                        ).index_add_(0, v.clamp(0, bins - 1),
                                     keep.to(torch.int32))
+
+
+def metrics_psum(spec: MetricsSpec, metrics: dict, group=None) -> dict:
+    """Every lane summed over the ranks of ``group`` (a
+    ``torch.distributed`` process group; ``None`` is the default group),
+    counters re-normalized afterwards.  Each rank's pairs are canonical, so
+    their digit sums stay exact in int32 for any realistic rank count.  The
+    lanes travel as one flat int32 tensor, one all-reduce."""
+    import torch.distributed as dist
+    flat = torch.cat([metrics[ln.name].reshape(-1) for ln in spec.lanes])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    out, at = {}, 0
+    for ln in spec.lanes:
+        size = metrics[ln.name].numel()
+        summed = flat[at:at + size].reshape(metrics[ln.name].shape)
+        at += size
+        out[ln.name] = _norm_pair(summed) if ln.kind == COUNTER else summed
+    return out
 
 
 def metrics_merge(spec: MetricsSpec, a: dict | None, b: dict) -> dict:

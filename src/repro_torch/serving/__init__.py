@@ -1,11 +1,13 @@
 """The Seeker slot for a batch of nodes, the intermittent lane, the lane
-registry, the single-device fleet engine and its streamed driver, the
-edge-to-host wire format and the fleet's serve step."""
+registry, the fleet engine (single-device and node-sharded) and its
+streamed driver, the edge-to-host wire format, the fleet's serve step and
+the pod-paired edge/host step."""
 from .edge_host import (  # noqa: F401
     SeekerNodeState, SensorStepOut, seeker_node_init,
     seeker_sensor_step_given_corr, seeker_host_step, seeker_simulate,
     IntermittentState, intermittent_node_init, intermittent_fleet_init,
     IntermittentLaneOut, intermittent_lane_step, fleet_serve_step,
+    edge_host_serve_step,
     WirePayload, encode_wire_coresets, decode_wire_coresets,
     wire_payload_nbytes, wire_payload_to_bytes, wire_payload_from_bytes,
     WireSamplePayload, encode_wire_samples, decode_wire_samples,
@@ -14,7 +16,8 @@ from .edge_host import (  # noqa: F401
 from .fleet import (  # noqa: F401
     fleet_node_init, draw_slot_noise, draw_fleet_noise, resolve_device,
     fleet_telemetry_spec, seeker_fleet_simulate,
-    seeker_fleet_simulate_streamed, wire_bytes_exact,
+    seeker_fleet_simulate_sharded, seeker_fleet_simulate_streamed,
+    wire_bytes_exact,
 )
 from .fleet_lanes import (  # noqa: F401
     FLEET_LANES, FleetCarry, FleetLane, TaskLaneConfig, fleet_counter_keys,

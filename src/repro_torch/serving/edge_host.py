@@ -43,12 +43,14 @@ from ..core.recovery import (GeneratorParams, recover_cluster_window,
 from ..models.har import (HARConfig, har_act_buffer, har_apply,
                           har_apply_aux, har_apply_quantized_nodes,
                           har_apply_stage)
+from ..sharding import all_gather_tiles, all_reduce_sum, exchange, node_shard
 
 __all__ = ["SeekerNodeState", "SensorStepOut", "seeker_node_init",
            "seeker_sensor_step_given_corr", "seeker_host_step",
            "seeker_simulate", "IntermittentState", "intermittent_node_init",
            "intermittent_fleet_init", "IntermittentLaneOut",
-           "intermittent_lane_step", "fleet_serve_step", "WirePayload",
+           "intermittent_lane_step", "fleet_serve_step",
+           "edge_host_serve_step", "WirePayload",
            "encode_wire_coresets", "decode_wire_coresets",
            "wire_payload_nbytes", "wire_payload_to_bytes",
            "wire_payload_from_bytes", "WireSamplePayload",
@@ -708,7 +710,7 @@ def _edge_encode_coresets(win: torch.Tensor, k: int) -> WirePayload:
 
 
 # ---------------------------------------------------------------------------
-# The fleet's edge -> host tier (single device)
+# The fleet's edge -> host tier, on one device or node-sharded
 # ---------------------------------------------------------------------------
 
 def fleet_serve_step(windows, *, host_params, har_cfg: HARConfig, mesh=None,
@@ -721,7 +723,7 @@ def fleet_serve_step(windows, *, host_params, har_cfg: HARConfig, mesh=None,
     """The fleet's edge-to-host tier: every node's (N, T, C) window is
     clustered per channel (one ``kmeans_coreset`` launch over the N * C
     channel clouds) and quantized to the wire format; only those payloads
-    reach the host.  Two modes, the reference's single-device ones:
+    reach the host.  The host work runs in one of three modes:
 
     * default: the batch is decoded, recovered and run through the DNN
       (:func:`repro_torch.host.server.recover_infer_batch`); the cluster
@@ -734,29 +736,39 @@ def fleet_serve_step(windows, *, host_params, har_cfg: HARConfig, mesh=None,
       (``seed``/``noise_fn``, see :func:`repro_torch.host.server.host_serve_slot`).
       ``alive`` (the caller's churn mask) and ``engine_alive`` (one slot of
       the fleet engine's emitted ``res["alive"]``, brown-outs folded in)
-      compose by AND: a dead node sends no frame.
+      compose by AND: a dead node sends no frame;
+    * ``per_shard_host=True`` (with a ``mesh`` and the queue mode's
+      arguments): no payload crosses ranks.  Each rank serves its own node
+      tile with its own server, row ``tile`` of the stacked ``host_state``
+      (:func:`repro_torch.host.server.host_server_init_stacked` with one
+      row per rank); only the QoS counters and the telemetry lanes are
+      summed over the ranks.
 
-    The port has no mesh: ``mesh`` must be ``None``, and ``per_shard_host``
-    raises (both wait for the sharded driver, ROADMAP Queue 1 item 4).
+    With a ``mesh`` (a ``DeviceMesh``; SPMD, every rank passes the same
+    global arguments) each rank encodes only its node tile (the fleet
+    padded with zero windows to the mesh quantum), and outside the
+    per-shard mode the six payload fields are gathered in the global node
+    order, padding cut, and the host runs on every rank as above.
 
     Returns ``wire_bytes`` (the quantized bytes the alive fleet sent;
     counting them reads the mask once, one synchronisation on a CUDA
     tensor), ``raw_bytes`` (the raw windows' equivalent), and
-    ``host_logits`` (N, L) or ``host_state``/``slot_output``."""
+    ``host_logits`` (N, L) or ``host_state``/``slot_output``.  The
+    per-shard mode returns the stacked ``host_state`` with this rank's row
+    advanced (the other rows as given: each rank owns its row), this rank's
+    ``slot_output``, the summed ``qos`` counters (``served``,
+    ``deadline_misses``, ``drops_overflow``) and, with
+    ``serve_cfg.telemetry``, the summed ``telemetry`` lanes."""
     from ..host.server import recover_infer_batch, serve_fleet_payloads
-    from .fleet import resolve_device, to_device
+    from .fleet import _as_array, _gather_nodes, _tile, resolve_device, \
+        to_device
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported: the sharded driver waits for ROADMAP "
-            "Queue 1 item 4; pass mesh=None")
-    if per_shard_host:
-        raise NotImplementedError(
-            "per_shard_host=True (one host server per node shard) needs the "
-            "sharded driver, which waits for ROADMAP Queue 1 item 4")
+    if per_shard_host and mesh is None:
+        raise ValueError("per_shard_host=True runs one host server per node "
+                         "shard: pass the mesh")
     dev = resolve_device(device)
-    windows = to_device(windows, dev, torch.float32)
-    n, t, c = windows.shape
+    shard = None if mesh is None else node_shard(mesh)
+    n, t, c = tuple(_as_array(windows).shape)
     if engine_alive is not None:
         engine_alive = to_device(engine_alive, dev, torch.bool)
         if tuple(engine_alive.shape) != (n,):
@@ -773,21 +785,29 @@ def fleet_serve_step(windows, *, host_params, har_cfg: HARConfig, mesh=None,
             raise ValueError("alive/engine_alive is a queue-mode argument: "
                              "without a host_state there is no queue to "
                              "keep dead nodes out of")
+    if per_shard_host:
+        return _fleet_serve_per_shard(
+            windows, n=n, t=t, c=c, k=k, shard=shard,
+            host_params=host_params, host_state=host_state,
+            serve_cfg=serve_cfg, gen_params=gen_params, alive=alive,
+            seed=seed, noise_fn=noise_fn, dev=dev)
 
-    payload = _edge_encode_coresets(windows, k)
+    if shard is None:
+        payload = _edge_encode_coresets(
+            to_device(windows, dev, torch.float32), k)
+    else:
+        _, lo, hi = shard.bounds(n)
+        payload = WirePayload(*(
+            _gather_nodes(f, shard, n) for f in _edge_encode_coresets(
+                _tile(windows, n, lo, hi, dev, torch.float32), k)))
     n_tx = n if alive is None else int(alive.sum())        # frames sent
     out = {
         "wire_bytes": n_tx * wire_payload_nbytes(k, c),
         "raw_bytes": n * raw_payload_bytes(t) * c,
     }
     if host_state is None:
-        if noise is None:
-            g = generator or torch.Generator(device=dev).manual_seed(0)
-            noise = {"dirs": torch.randn((n, c, t, 2), generator=g,
-                                         device=dev),
-                     "radii_u": torch.rand((n, c, t, 1), generator=g,
-                                           device=dev)}
-        noise = to_device(noise, dev, torch.float32)
+        noise = to_device(noise if noise is not None else _draw_recovery(
+            generator, n, c, t, dev), dev, torch.float32)
         out["host_logits"] = recover_infer_batch(payload, host_params, noise,
                                                  t)
         return out
@@ -801,3 +821,146 @@ def fleet_serve_step(windows, *, host_params, har_cfg: HARConfig, mesh=None,
     out["host_state"] = state
     out["slot_output"] = slot_out
     return out
+
+
+def _draw_recovery(generator, n: int, c: int, t: int, dev) -> dict:
+    """The direct mode's cluster-recovery draws for ``n`` rows: directions
+    (N, C, T, 2), then radii (N, C, T, 1), from ``generator`` (default
+    ``manual_seed(0)`` on ``dev``)."""
+    g = generator or torch.Generator(device=dev).manual_seed(0)
+    return {"dirs": torch.randn((n, c, t, 2), generator=g, device=dev),
+            "radii_u": torch.rand((n, c, t, 1), generator=g, device=dev)}
+
+
+def _fleet_serve_per_shard(windows, *, n, t, c, k, shard, host_params,
+                           host_state, serve_cfg, gen_params, alive, seed,
+                           noise_fn, dev) -> dict:
+    """:func:`fleet_serve_step`'s per-shard mode: the rank's node tile is
+    encoded and served by the rank's own server; the QoS counters (one
+    all-reduce) and the telemetry lanes (:func:`repro_torch.obs.
+    metrics_psum`) are all that crosses ranks."""
+    import dataclasses
+
+    from ..host.queue import tree_map
+    from ..host.server import (cluster_entries, host_serve_slot,
+                               host_telemetry_spec)
+    from ..obs import metrics_psum
+    from .fleet import _tile, to_device
+
+    if serve_cfg is None or gen_params is None or host_state is None:
+        raise ValueError("fleet_serve_step per_shard_host mode needs "
+                         "host_state (stacked: host_server_init_stacked), "
+                         "serve_cfg and gen_params")
+    lead = host_state.queue.payload.kind.shape[0]      # the first leaf
+    if lead != shard.quantum:
+        raise ValueError(
+            f"per_shard_host needs one host server per shard: host_state "
+            f"is stacked for {lead} hosts, mesh quantum is {shard.quantum} "
+            f"(use host_server_init_stacked(cfg, {shard.quantum}))")
+    _, lo, hi = shard.bounds(n)
+    n_local = hi - lo
+    if n_local > serve_cfg.queue_capacity:
+        raise ValueError(
+            f"per-shard ingest lane of {n_local} nodes exceeds "
+            f"queue_capacity={serve_cfg.queue_capacity}; raise "
+            f"HostServeConfig.queue_capacity")
+    # service rate: enough EDF microbatches to cover the local tile
+    cfg = dataclasses.replace(
+        serve_cfg, batches_per_slot=-(-n_local // serve_cfg.batch_size))
+    # padding nodes (global index >= n) and dead nodes never enqueue
+    mask = torch.arange(lo, hi, device=dev) < n
+    if alive is not None:
+        mask = mask & _tile(alive, n, lo, hi, dev)
+    payload = _edge_encode_coresets(
+        _tile(windows, n, lo, hi, dev, torch.float32), k)
+    stacked = to_device(host_state, dev)
+    row, slot_out = host_serve_slot(
+        tree_map(lambda a: a[shard.index], stacked),
+        cluster_entries(payload, cfg.m),
+        torch.arange(lo, hi, dtype=torch.int32, device=dev), mask, cfg=cfg,
+        host_params=host_params, gen_params=gen_params, seed=seed,
+        noise_fn=noise_fn)
+    i = shard.index
+    new_state = tree_map(
+        lambda a, r: torch.cat([a[:i], r[None].to(a.dtype), a[i + 1:]]),
+        stacked, row)
+    qos = all_reduce_sum(torch.stack([
+        row.served, row.deadline_misses,
+        row.queue.drops_overflow]).to(torch.int64), shard).tolist()
+    n_tx = n if alive is None else int(alive.sum())
+    out = {
+        "wire_bytes": n_tx * wire_payload_nbytes(k, c),
+        "raw_bytes": n * raw_payload_bytes(t) * c,
+        "host_state": new_state,
+        "slot_output": slot_out,
+        "qos": dict(zip(("served", "deadline_misses", "drops_overflow"),
+                        qos)),
+    }
+    if cfg.telemetry:
+        out["telemetry"] = metrics_psum(host_telemetry_spec(cfg), row.metrics,
+                                        shard.group)
+    return out
+
+
+def edge_host_serve_step(windows, *, signatures, qdnn_params, host_params,
+                         gen_params, har_cfg: HARConfig, mesh, k: int = 12,
+                         quant_bits: int = 16, noise: dict | None = None,
+                         generator: torch.Generator | None = None,
+                         device=None) -> torch.Tensor:
+    """Paired-tier serving across the ``"pod"`` dim of a ``DeviceMesh``.
+
+    Each pod is the edge for its own sensor batch and the host for its peer
+    pod: a rank clusters its tile of ``windows`` (B, T, C) (split over
+    ("pod", "data") like the fleet's nodes) into the quantized coreset
+    payload, sends the payload to the rank at ``(pod + 1) % npods`` on its
+    ``data`` index (coreset bytes on the wire instead of raw windows; the
+    identity with one pod), and recovers and classifies the batch it
+    receives from ``(pod - 1) % npods``
+    (:func:`repro_torch.host.server.recover_infer_batch`).  The recovery
+    draws ``noise`` ``{"dirs": (B, C, T, 2), "radii_u": (B, C, T, 1)}``,
+    indexed by the windows' global rows, or draws the whole batch's from
+    ``generator`` (default ``manual_seed(0)``) as
+    :func:`fleet_serve_step`'s direct mode does, each rank keeping its
+    peer's rows.  ``signatures``, ``qdnn_params``, ``gen_params`` and
+    ``quant_bits`` are the reference's arguments; the edge half here is
+    the coreset encode.
+
+    Returns the (B, L) host logits gathered in the global tile order: the
+    block of rank ``r`` holds the logits of the windows of the rank one pod
+    before it, as the reference's result is laid out."""
+    from ..host.server import recover_infer_batch
+    from ..sharding import tile_index
+    from .fleet import _as_array, resolve_device, to_device
+
+    dev = resolve_device(device)
+    shard = node_shard(mesh)
+    if "pod" not in shard.sizes:
+        raise ValueError(f"edge_host_serve_step pairs pods: the mesh "
+                         f"{tuple(shard.sizes)} has no 'pod' dim")
+    windows = _as_array(windows)
+    b, t, c = tuple(windows.shape)
+    if b % shard.quantum:
+        raise ValueError(f"the window batch of {b} does not split over the "
+                         f"{shard.quantum} ranks of the mesh")
+    size = b // shard.quantum
+    lo = shard.index * size
+    payload = _edge_encode_coresets(
+        to_device(windows[lo:lo + size], dev, torch.float32), k)
+    names = tuple(shard.sizes)
+    pods = shard.sizes["pod"]
+
+    def rank_at(shift):
+        at = dict(shard.coords, pod=(shard.coords["pod"] + shift) % pods)
+        return at, int(shard.grid[tuple(at[a] for a in names)])
+
+    _, dst = rank_at(1)
+    src_at, src = rank_at(-1)
+    payload = WirePayload(*(exchange(f, shard, dst, src) for f in payload))
+    src_lo = tile_index(src_at, shard.sizes, shard.axes) * size
+    if noise is None:
+        noise = _draw_recovery(generator, b, c, t, dev)
+    noise = {key: to_device(_as_array(noise[key])[src_lo:src_lo + size],
+                            dev, torch.float32)
+             for key in ("dirs", "radii_u")}
+    logits = recover_infer_batch(payload, host_params, noise, t)
+    return all_gather_tiles(logits, shard, 0)

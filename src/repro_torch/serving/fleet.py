@@ -1,4 +1,4 @@
-"""Fleet-scale batched Seeker simulator on one device.
+"""Fleet-scale batched Seeker simulator, on one device or node-sharded.
 
 PyTorch counterpart of the bare single-device engine of
 :mod:`repro.serving.fleet`: N independent nodes, each with its own
@@ -51,6 +51,11 @@ Lanes (:mod:`repro_torch.serving.fleet_lanes`), as in the JAX engine:
 ``chunk`` slots, chained through the resume arguments, so only one segment
 of windows exists at a time while every trace and counter is bitwise one
 long run.
+
+:func:`seeker_fleet_simulate_sharded` splits the node axis over the ranks
+of a ``torch.distributed`` device mesh (:mod:`repro_torch.sharding`): each
+rank runs the same slot loop on its node tile, and only the aggregates,
+the telemetry lanes and, after the last slot, the traces cross ranks.
 """
 from __future__ import annotations
 
@@ -68,8 +73,10 @@ from ..core.energy import (BrownoutConfig, EnergyCosts, predictor_init,
 from ..kernels.ops import signature_corr_op
 from ..models.har import HARConfig, quantize_params
 from ..obs import (MetricsSpec, categorical_counts, counters_add,
-                   metrics_init, metrics_merge, spec_union)
+                   metrics_init, metrics_merge, metrics_psum, spec_union)
 from ..obs import trace as obs_trace
+from ..sharding import (NodeShard, all_gather_tiles, all_reduce_sum,
+                        make_mesh, node_shard)
 from .edge_host import (IntermittentState, SeekerNodeState,
                         intermittent_fleet_init, intermittent_lane_step,
                         seeker_host_step, seeker_sensor_step_given_corr)
@@ -81,7 +88,8 @@ from .fleet_lanes import (FLEET_LANES, N_DECISIONS, FleetCarry,
 __all__ = ["N_DECISIONS", "NOISE_KEYS", "resolve_device", "to_device",
            "fleet_node_init", "draw_slot_noise", "draw_fleet_noise",
            "fleet_telemetry_spec", "seeker_fleet_simulate",
-           "seeker_fleet_simulate_streamed", "wire_bytes_exact"]
+           "seeker_fleet_simulate_sharded", "seeker_fleet_simulate_streamed",
+           "wire_bytes_exact"]
 
 NOISE_KEYS = ("u", "dirs", "radii_u", "latent")
 LATENT = 16
@@ -237,27 +245,37 @@ def draw_fleet_noise(generator: torch.Generator, s: int, n: int, t: int,
     return {k: torch.stack([sl[k] for sl in slots]) for k in NOISE_KEYS}
 
 
-def _check_noise(noise: dict, s: int, n: int, t: int, c: int, dev):
+def _as_array(x):
+    """A tensor or numpy array as given (anything else through numpy), for
+    shape checks that move no data."""
+    return x if isinstance(x, (torch.Tensor, np.ndarray)) else np.asarray(x)
+
+
+def _check_noise(noise: dict, s: int, n: int, t: int, c: int, take):
+    """Pre-drawn noise checked against the (S, N, ...) shapes of
+    :func:`draw_slot_noise`; ``take`` moves each array where the run needs
+    it (the whole of it, or one rank's node tile)."""
     want = {"u": (s, n, t), "dirs": (s, n, c, t, 2),
             "radii_u": (s, n, c, t, 1), "latent": (s, n, LATENT)}
     out = {}
     for k, shape in want.items():
         if k not in noise:
             raise ValueError(f"noise lacks {k!r}; it needs {sorted(want)}")
-        v = to_device(noise[k], dev, torch.float32)
+        v = _as_array(noise[k])
         if tuple(v.shape) != shape:
             raise ValueError(f"noise[{k!r}] must be {shape}, got "
                              f"{tuple(v.shape)}")
-        out[k] = v
+        out[k] = take(v)
     return out
 
 
-def _resolve_labels(labels, s: int, n: int, shared_stream: bool, dev):
-    """(labels, per_node): a shared (S,) track (only with a shared stream)
-    or per-node (S, N) tracks, validated like the JAX engine."""
+def _labels_layout(labels, s: int, n: int, shared_stream: bool):
+    """(labels, per_node), labels as given: a shared (S,) track (only with a
+    shared stream) or per-node (S, N) tracks, validated like the JAX
+    engine."""
     if labels is None:
         return None, False
-    labels = to_device(labels, dev, torch.int64)
+    labels = _as_array(labels)
     accepted = (f"accepted forms: (S,)=({s},) shared-stream track, or "
                 f"(S, N)=({s}, {n}) per-node tracks")
     if tuple(labels.shape) == (s, n):
@@ -274,15 +292,31 @@ def _resolve_labels(labels, s: int, n: int, shared_stream: bool, dev):
                      f"{tuple(labels.shape)}; {accepted}.")
 
 
-def _resolve_alive(alive, n: int, s: int, dev) -> torch.Tensor:
-    """(N, S) bool churn trace; ``None`` is the always-present fleet."""
+def _resolve_labels(labels, s: int, n: int, shared_stream: bool, dev):
+    """:func:`_labels_layout`, the labels on ``dev`` as int64."""
+    labels, per_node = _labels_layout(labels, s, n, shared_stream)
+    if labels is None:
+        return None, False
+    return to_device(labels, dev, torch.int64), per_node
+
+
+def _check_alive(alive, n: int, s: int):
+    """The (N, S) churn trace as given, shape-checked (``None`` stays)."""
     if alive is None:
-        return torch.ones((n, s), dtype=torch.bool, device=dev)
-    alive = to_device(alive, dev, torch.bool)
+        return None
+    alive = _as_array(alive)
     if tuple(alive.shape) != (n, s):
         raise ValueError(f"alive must be (N, S)=({n}, {s}) bool, got "
                          f"{tuple(alive.shape)}")
     return alive
+
+
+def _resolve_alive(alive, n: int, s: int, dev) -> torch.Tensor:
+    """(N, S) bool churn trace; ``None`` is the always-present fleet."""
+    alive = _check_alive(alive, n, s)
+    if alive is None:
+        return torch.ones((n, s), dtype=torch.bool, device=dev)
+    return to_device(alive, dev, torch.bool)
 
 
 def _resolve_brownout0(brownout_state0, state0: SeekerNodeState,
@@ -474,7 +508,8 @@ def _fleet_aggregates(traces: dict, exo_alive: torch.Tensor, labels,
                       per_node: bool,
                       intermittent: IntermittentConfig | None,
                       slot0: int, tasks: torch.Tensor | None = None,
-                      task: TaskLaneConfig | None = None) -> dict:
+                      task: TaskLaneConfig | None = None,
+                      mask: torch.Tensor | None = None) -> dict:
     """Masked fleet aggregates from (S, N) traces.  The activity mask is
     the emitted alive lane (exogenous and not browned out); ``exo_alive``
     is the exogenous trace alone, which counts the slots the brown-out
@@ -483,7 +518,11 @@ def _fleet_aggregates(traces: dict, exo_alive: torch.Tensor, labels,
     With the intermittent lane a D6 suspension is no completion and the
     histogram has the 9 codes.  With the task lane the completions and
     misses (an alive slot that put nothing on the wire missed its
-    deadline) split per task id."""
+    deadline) split per task id.  ``mask`` (N,) takes the sharded
+    engine's padding nodes out of every count."""
+    if mask is not None:
+        traces = dict(traces, **{k: traces[k] & mask[None, :]
+                                 for k in ("alive", "brownout", "bo_event")})
     act = traces["alive"]
     dec = traces["decisions"]
     sent = _completed(dec, act, intermittent is not None)
@@ -600,23 +639,10 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
     harvest = to_device(harvest, dev, torch.float32)
     windows = to_device(windows, dev, torch.float32)
     n, s = harvest.shape
-    if windows.ndim not in (3, 4):
-        raise ValueError(f"windows must be (S,T,C) or (N,S,T,C), got "
-                         f"{tuple(windows.shape)}")
-    shared_stream = windows.ndim == 3
-    if shared_stream:
-        if windows.shape[0] != s:
-            raise ValueError(f"windows {tuple(windows.shape)} vs S={s}")
-        xs_w = windows.contiguous()                           # (S, T, C)
-    else:
-        if tuple(windows.shape[:2]) != (n, s):
-            raise ValueError(f"windows {tuple(windows.shape)} vs (N, S)="
-                             f"({n}, {s})")
-        xs_w = windows.transpose(0, 1).contiguous()           # (S, N, T, C)
+    shared_stream = _check_windows(tuple(windows.shape), n, s, har_cfg)
     t, c = windows.shape[-2:]
-    if (t, c) != (har_cfg.window, har_cfg.channels):
-        raise ValueError(f"windows are (T, C)=({t}, {c}), the model takes "
-                         f"({har_cfg.window}, {har_cfg.channels})")
+    xs_w = (windows.contiguous() if shared_stream                # (S, T, C)
+            else windows.transpose(0, 1).contiguous())        # (S, N, T, C)
     labels, per_node_labels = _resolve_labels(labels, s, n, shared_stream,
                                               dev)
     exo_alive = _resolve_alive(alive, n, s, dev)
@@ -644,26 +670,80 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
         telemetry=None if tel_spec is None else metrics_init(tel_spec, dev),
         brownout=_resolve_brownout0(brownout_state0, state, brownout, n))
     if noise is not None:
-        noise = _check_noise(noise, s, n, t, c, dev)
+        noise = _check_noise(noise, s, n, t, c,
+                             lambda v: to_device(v, dev, torch.float32))
+
+        def slot_noise(si):
+            return {k: v[si] for k, v in noise.items()}
     else:
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        if generator.device != dev:
-            raise ValueError(f"generator is on {generator.device}, the run "
-                             f"on {dev}")
-    block = n if node_block is None else max(1, min(node_block, n))
-    blocks = [slice(lo, lo + block) for lo in range(0, n, block)]
-    # the task lane's per-block constants, made once per run
-    scale = (None if task is None else torch.tensor(
-        task.cost_scale, dtype=torch.float32, device=dev)[tasks.long()])
-    host_idx = [None] * len(blocks)
+        generator = _check_generator(generator, dev)
+
+        def slot_noise(si):
+            return draw_slot_noise(generator, n, t, c)
+    params = _model_params(
+        signatures=signatures, qdnn_params=qdnn_params,
+        host_params=host_params, gen_params=gen_params, aac_table=aac_table,
+        costs=costs, quant_bits=quant_bits, k_max=k_max,
+        m_samples=m_samples, corr_threshold=corr_threshold, har_cfg=har_cfg,
+        brownout=brownout, intermittent=intermittent, aux_params=aux_params,
+        task=task, dev=dev)
+    traces, carry = _run_slots(
+        xs_w, harvest, exo_alive, carry, slot_noise, params=params,
+        tasks=tasks, task=task, brownout=brownout, intermittent=intermittent,
+        tel_spec=tel_spec, active=active, slot0=slot0, node_block=node_block)
+    aggs = _fleet_aggregates(traces, exo_alive.T, labels, per_node_labels,
+                             intermittent, slot0, tasks, task)
+    return _fleet_result(traces, aggs, carry, active=active,
+                         intermittent=intermittent, tel_spec=tel_spec,
+                         telemetry_state0=telemetry_state0,
+                         scored=labels is not None, tasks=tasks, task=task,
+                         t=t, c=c)
+
+
+def _check_windows(shape: tuple, n: int, s: int, har_cfg: HARConfig) -> bool:
+    """Whether ``windows`` of ``shape`` are one shared (S, T, C) stream
+    (else (N, S, T, C), a stream per node), checked against the harvest's
+    (N, S) and the model's (T, C)."""
+    if len(shape) not in (3, 4):
+        raise ValueError(f"windows must be (S,T,C) or (N,S,T,C), got "
+                         f"{shape}")
+    shared_stream = len(shape) == 3
+    if shared_stream:
+        if shape[0] != s:
+            raise ValueError(f"windows {shape} vs S={s}")
+    elif shape[:2] != (n, s):
+        raise ValueError(f"windows {shape} vs (N, S)=({n}, {s})")
+    if shape[-2:] != (har_cfg.window, har_cfg.channels):
+        raise ValueError(f"windows are (T, C)=({shape[-2]}, {shape[-1]}), "
+                         f"the model takes ({har_cfg.window}, "
+                         f"{har_cfg.channels})")
+    return shared_stream
+
+
+def _check_generator(generator: torch.Generator | None, dev
+                     ) -> torch.Generator:
+    """The run's noise generator: ``manual_seed(0)`` on ``dev`` by default;
+    one on another device is refused."""
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    if generator.device != dev:
+        raise ValueError(f"generator is on {generator.device}, the run "
+                         f"on {dev}")
+    return generator
+
+
+def _model_params(*, signatures, qdnn_params, host_params, gen_params,
+                  aac_table, costs, quant_bits, k_max, m_samples,
+                  corr_threshold, har_cfg, brownout, intermittent,
+                  aux_params, task, dev) -> dict:
+    """The slot's replicated inputs on ``dev``: the signature bank, the
+    quantized D2 (and auxiliary-head) weights, the host and generator
+    weights, and the ladder's knobs."""
     if task is not None and task.per_task_host:
         host_params = tuple(to_device(p, dev) for p in host_params)
-        host_idx = [[torch.nonzero(tasks[sl] == k).flatten()
-                     for k in range(task.n_tasks)] for sl in blocks]
     else:
         host_params = to_device(host_params, dev)
-    params = dict(
+    return dict(
         signatures=to_device(signatures, dev, torch.float32).contiguous(),
         qp=quantize_params(to_device(qdnn_params, dev), quant_bits),
         qa=(None if intermittent is None else
@@ -677,14 +757,37 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
         strict=brownout is not None or intermittent is not None,
         intermittent=intermittent,
         reserve_uj=brownout.off_uj if brownout is not None else 0.0)
+
+
+def _run_slots(xs_w, harvest, exo_alive, carry: FleetCarry, slot_noise, *,
+               params: dict, tasks, task, brownout, intermittent, tel_spec,
+               active: frozenset, slot0: int, node_block: int | None):
+    """The slot loop over the nodes one device holds: ``xs_w`` the (S, T, C)
+    shared stream or (S, N, T, C) streams, ``harvest`` and ``exo_alive``
+    (N, S), ``carry`` the state entering the first slot and
+    ``slot_noise(si)`` slot ``si``'s (N, ...) noise.  Returns the stacked
+    (S, N) traces, ``preds`` included, and the carry after the last
+    slot."""
+    n, s = harvest.shape
+    t, c = xs_w.shape[-2:]
+    shared_stream = xs_w.ndim == 3
+    dev = harvest.device
+    block = n if node_block is None else max(1, min(node_block, n))
+    blocks = [slice(lo, lo + block) for lo in range(0, n, block)]
+    # the task lane's per-block constants, made once per run
+    scale = (None if task is None else torch.tensor(
+        task.cost_scale, dtype=torch.float32, device=dev)[tasks.long()])
+    host_idx = [None] * len(blocks)
+    if task is not None and task.per_task_host:
+        host_idx = [[torch.nonzero(tasks[sl] == k).flatten()
+                     for k in range(task.n_tasks)] for sl in blocks]
     keep_fields = [ln.carry_field for ln in FLEET_LANES if ln.freeze == "keep"]
 
     per_slot = []
     for si in range(s):
         win_t = (xs_w[si].expand(n, t, c).contiguous() if shared_stream
                  else xs_w[si])
-        nz = ({k: v[si] for k, v in noise.items()} if noise is not None
-              else draw_slot_noise(generator, n, t, c))
+        nz = slot_noise(si)
         harv_t = harvest[:, si]
         alive_t = exo_alive[:, si]
         browned = carry.brownout
@@ -750,9 +853,16 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
         per_slot.append(out_t)
     traces = {k: torch.stack([p[k] for p in per_slot]) for k in per_slot[0]}
     traces["preds"] = torch.argmax(traces["logits"], dim=-1)
+    return traces, carry
 
-    aggs = _fleet_aggregates(traces, exo_alive.T, labels, per_node_labels,
-                             intermittent, slot0, tasks, task)
+
+def _fleet_result(traces: dict, aggs: dict, carry: FleetCarry, *,
+                  active: frozenset, intermittent, tel_spec,
+                  telemetry_state0, scored: bool, tasks, task, t: int,
+                  c: int) -> dict:
+    """The engine's result dict from the whole fleet's traces, aggregates
+    and final carry (``scored``: labels were given)."""
+    dev = traces["decisions"].device
     out = {k: traces[k] for k in fleet_trace_keys(active)}
     out.update(aggs)
     out.update(
@@ -768,15 +878,243 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
                 else to_device(telemetry_state0, dev, torch.int32))
         out["telemetry"] = metrics_merge(tel_spec, tel0, carry.telemetry)
         out["telemetry_spec"] = tel_spec
-    if labels is not None:
+    if scored:
         out["fleet_accuracy"] = aggs["correct"] / torch.clamp(
             aggs["completed"], min=1)
     if task is not None:
         out["task_names"] = task.names
         out["tasks"] = tasks
-        if labels is not None:
+        if scored:
             out["accuracy_by_task"] = aggs["correct_by_task"] / torch.clamp(
                 aggs["completed_by_task"], min=1)
+    return out
+
+
+def _tile(x, n: int, lo: int, hi: int, dev, dtype=None, dim: int = 0,
+          fill=None):
+    """Rows ``[lo, hi)`` of the padded fleet along ``dim`` of ``x`` (a
+    tensor, numpy array or NamedTuple of them with ``n`` rows there), moved
+    to ``dev``: the real rows, then the padding rows of ``fill`` (same
+    structure, ``hi - max(lo, n)`` rows; zeros when ``None``)."""
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_tile(v, n, lo, hi, dev, dtype, dim,
+                               None if fill is None else getattr(fill, f))
+                         for f, v in zip(x._fields, x)))
+    x = _as_array(x)
+    real = to_device(x[(slice(None),) * dim + (slice(min(lo, n),
+                                                     min(hi, n)),)],
+                     dev, dtype)
+    short = (hi - lo) - real.shape[dim]
+    if not short:
+        return real
+    if fill is None:
+        shape = list(real.shape)
+        shape[dim] = short
+        fill = torch.zeros(shape, dtype=real.dtype, device=dev)
+    return torch.cat([real, to_device(fill, dev, real.dtype)], dim=dim)
+
+
+def _gather_nodes(x, shard: NodeShard, n: int, dim: int = 0):
+    """Every rank's tile of ``x`` (a tensor or NamedTuple of them, node axis
+    ``dim``), gathered in the global order with the padding cut off."""
+    if x is None:
+        return None
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_gather_nodes(v, shard, n, dim) for v in x))
+    return all_gather_tiles(x, shard, dim).narrow(dim, 0, n)
+
+
+def _reduce_aggregates(aggs: dict, shard: NodeShard) -> dict:
+    """The aggregates summed over the ranks: the integer counts in one
+    int64 all-reduce (exact), the float32 ``bytes_on_wire`` in another."""
+    ints = [k for k, v in aggs.items() if not v.is_floating_point()]
+    floats = [k for k in aggs if k not in ints]
+    out = {}
+    for keys, dtype in ((ints, torch.int64), (floats, torch.float32)):
+        if not keys:
+            continue
+        flat = all_reduce_sum(torch.cat([aggs[k].reshape(-1).to(dtype)
+                                         for k in keys]), shard)
+        at = 0
+        for k in keys:
+            size = aggs[k].numel()
+            out[k] = flat[at:at + size].reshape(aggs[k].shape).to(
+                aggs[k].dtype)
+            at += size
+    return out
+
+
+def _default_mesh(dev: torch.device):
+    """The reference's default: a 1-D ("data",) mesh over every rank of the
+    initialized default group."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "the sharded fleet needs an initialized process group (or a "
+            "mesh): call torch.distributed.init_process_group first")
+    return make_mesh((dist.get_world_size(),), ("data",),
+                     device_type=dev.type)
+
+
+def seeker_fleet_simulate_sharded(
+        windows, harvest, *, signatures, qdnn_params, host_params,
+        gen_params, har_cfg: HARConfig, mesh=None,
+        aac_table: AACTable | None = None, costs: EnergyCosts | None = None,
+        generator: torch.Generator | None = None, noise: dict | None = None,
+        quant_bits: int = 16, k_max: int = 12, m_samples: int = 20,
+        corr_threshold: float = 0.95, predictor_window: int = 8,
+        initial_uj: float = 50.0, state0: SeekerNodeState | None = None,
+        labels=None, alive=None, brownout: BrownoutConfig | None = None,
+        brownout_state0=None, node_block: int | None = None,
+        intermittent: IntermittentConfig | None = None,
+        intermittent_state0: IntermittentState | None = None,
+        aux_params: dict | None = None, slot0: int = 0, telemetry=None,
+        telemetry_state0: dict | None = None, tasks=None,
+        task: TaskLaneConfig | None = None, device=None):
+    """:func:`seeker_fleet_simulate` with the node axis split over the ranks
+    of a ``torch.distributed`` device mesh.
+
+    SPMD: every rank of ``mesh`` calls this with the same global inputs.
+    The node axis splits over the mesh dims the ``"nodes"`` rule names
+    (:data:`repro_torch.sharding.FLEET_RULES`: ("pod", "data"), pod-major);
+    a rank moves only its tile of every per-node input to ``device`` and
+    runs the single-device slot loop on it, and the signature bank and
+    every weight tree are replicated.  After the last slot the aggregates
+    and the telemetry lanes are summed over the ranks
+    (:func:`repro_torch.obs.metrics_psum`), and the traces and final
+    carries are gathered, so every rank returns the whole fleet's result.
+
+    A fleet whose N is not a multiple of the mesh quantum is padded with
+    inert nodes: zero windows and harvest, permanently dead, their
+    brown-out flag held awake, task 0 and an idle intermittent lane; a
+    padding mask takes them out of every aggregate, and they are cut from
+    every returned trace.
+
+    The noise does not depend on the layout: ``noise=`` (S, N, ...) is cut
+    to each rank's tile (padding rows zero), and with a ``generator`` every
+    rank draws the whole fleet's slot batch (:func:`draw_slot_noise`) from
+    its own generator, seeded alike on every rank, and keeps its tile.  So
+    a sharded run equals the single-device engine's with the same seed for
+    any world size: integer and energy traces exactly; the logits exactly
+    when the node blocks have the same shape (``node_block`` at most the
+    tile), else to the last bits of float32.
+
+    Args (beyond :func:`seeker_fleet_simulate`'s):
+        mesh: a ``DeviceMesh`` whose dims are named from ("pod", "data");
+            default, a ("data",) mesh over the default group.  Anything
+            else raises ``ValueError``.
+
+    Returns :func:`seeker_fleet_simulate`'s dict for the whole fleet, plus
+    ``padded_nodes`` (the inert nodes added) and ``node_axes`` (the mesh
+    dims the node axis split over).
+    """
+    dev = resolve_device(device)
+    shard = node_shard(mesh if mesh is not None else _default_mesh(dev))
+    costs = costs or EnergyCosts()
+    n, s = tuple(_as_array(harvest).shape)
+    win = _as_array(windows)
+    shared_stream = _check_windows(tuple(win.shape), n, s, har_cfg)
+    t, c = win.shape[-2:]
+    pad, lo, hi = shard.bounds(n)
+    rows = functools.partial(_tile, n=n, lo=lo, hi=hi, dev=dev)
+    mask = torch.arange(lo, hi, device=dev) < n
+    if shared_stream:
+        xs_w = to_device(win, dev, torch.float32).contiguous()
+    else:
+        xs_w = rows(win, dtype=torch.float32).transpose(0, 1).contiguous()
+    harv = rows(harvest, dtype=torch.float32)
+    alive_g = _check_alive(alive, n, s)
+    # padding nodes are permanently dead: their ladder never runs
+    exo_alive = (mask[:, None].expand(hi - lo, s).clone() if alive_g is None
+                 else rows(alive_g, dtype=torch.bool))
+    labels_g, per_node_labels = _labels_layout(labels, s, n, shared_stream)
+    if labels_g is None:
+        labels_t = None
+    elif per_node_labels:
+        labels_t = rows(labels_g, dtype=torch.int64, dim=1)
+    else:
+        labels_t = to_device(labels_g, dev, torch.int64)
+    filler = fleet_node_init(max(hi - max(lo, n), 0), predictor_window,
+                             initial_uj, dev)
+    if state0 is None:
+        state = fleet_node_init(hi - lo, predictor_window, initial_uj, dev)
+    else:
+        lead = _as_array(state0.stored_uj).shape[0]
+        if lead != n:
+            raise ValueError(f"state0 is stacked for {lead} nodes, fleet "
+                             f"has {n}")
+        state = rows(state0, fill=filler)
+    if brownout_state0 is not None:
+        b0 = _as_array(brownout_state0)
+        if tuple(b0.shape) != (n,):
+            raise ValueError(f"brownout_state0 must be (N,)=({n},) bool, "
+                             f"got {tuple(b0.shape)}")
+        browned0 = rows(b0, dtype=torch.bool)
+    else:
+        # boot-time hysteresis on the real nodes; padding held awake
+        browned0 = _resolve_brownout0(None, state, brownout,
+                                      hi - lo) & mask
+    _validate_intermittent_args(intermittent, intermittent_state0,
+                                aux_params, n)
+    tasks, task = _resolve_tasks(tasks, task, n, dev)
+    host_params = _resolve_task_host(task, host_params)
+    tasks_t = None if tasks is None else rows(tasks)   # padding: task 0
+    tel_spec = _resolve_telemetry(telemetry, intermittent, task)
+    active = _active_lanes(intermittent, task, brownout)
+    it = None
+    if intermittent is not None:
+        it_fill = intermittent_fleet_init(filler.stored_uj.shape[0], har_cfg,
+                                          dev)
+        it = (intermittent_fleet_init(hi - lo, har_cfg, dev)
+              if intermittent_state0 is None
+              else rows(intermittent_state0, fill=it_fill))
+    carry = FleetCarry(
+        node=state, intermittent=it, brownout=browned0,
+        telemetry=None if tel_spec is None else metrics_init(tel_spec, dev))
+    if noise is not None:
+        tile_noise = _check_noise(noise, s, n, t, c, functools.partial(
+            rows, dtype=torch.float32, dim=1))
+
+        def slot_noise(si):
+            return {k: v[si] for k, v in tile_noise.items()}
+    else:
+        generator = _check_generator(generator, dev)
+
+        def slot_noise(si):
+            # the whole fleet's batch, from the same stream on every rank
+            return {k: rows(v) for k, v in
+                    draw_slot_noise(generator, n, t, c).items()}
+    params = _model_params(
+        signatures=signatures, qdnn_params=qdnn_params,
+        host_params=host_params, gen_params=gen_params, aac_table=aac_table,
+        costs=costs, quant_bits=quant_bits, k_max=k_max,
+        m_samples=m_samples, corr_threshold=corr_threshold, har_cfg=har_cfg,
+        brownout=brownout, intermittent=intermittent, aux_params=aux_params,
+        task=task, dev=dev)
+    traces, carry = _run_slots(
+        xs_w, harv, exo_alive, carry, slot_noise, params=params,
+        tasks=tasks_t, task=task, brownout=brownout,
+        intermittent=intermittent, tel_spec=tel_spec, active=active,
+        slot0=slot0, node_block=node_block)
+    aggs = _reduce_aggregates(_fleet_aggregates(
+        traces, exo_alive.T, labels_t, per_node_labels, intermittent, slot0,
+        tasks_t, task, mask=mask), shard)
+
+    gathered = {k: _gather_nodes(traces[k], shard, n, dim=1)
+                for k in fleet_trace_keys(active) if k != "preds"}
+    gathered["preds"] = torch.argmax(gathered["logits"], dim=-1)
+    carry = FleetCarry(
+        node=_gather_nodes(carry.node, shard, n),
+        brownout=_gather_nodes(carry.brownout, shard, n),
+        intermittent=_gather_nodes(carry.intermittent, shard, n),
+        telemetry=None if tel_spec is None else metrics_psum(
+            tel_spec, carry.telemetry, shard.group))
+    out = _fleet_result(gathered, aggs, carry, active=active,
+                        intermittent=intermittent, tel_spec=tel_spec,
+                        telemetry_state0=telemetry_state0,
+                        scored=labels_t is not None, tasks=tasks, task=task,
+                        t=t, c=c)
+    out.update(padded_nodes=pad, node_axes=shard.axes)
     return out
 
 
@@ -808,20 +1146,20 @@ def seeker_fleet_simulate_streamed(
             so the draws go on slot by slot as in one long run (default
             ``manual_seed(0)`` on ``device``); or ``noise``, pre-drawn
             (S, N, ...) tensors sliced per segment.
-        mesh: the sharded driver is not ported; anything but ``None``
-            raises ``NotImplementedError``.
+        mesh: a ``DeviceMesh``: every segment runs through
+            :func:`seeker_fleet_simulate_sharded` on it (every rank calls
+            the driver with the same global inputs, and a ``generator``
+            seeded alike on every rank); ``None`` is the single-device
+            engine.
 
     Returns the engine's dict: traces concatenated over time, the counters
     the lane registry names summed exactly (``bytes_on_wire_exact`` in
     int64), ``bytes_on_wire`` summed per segment, the label-scored counts
     (``correct``, ``it_correct_*``, ``correct_by_task``) rescored over the
     concatenated traces (a segment cannot see the labels of windows caught
-    before it), the fractions recomputed, and ``n_chunks``.
+    before it), the fractions recomputed, and ``n_chunks``; with a ``mesh``
+    also ``padded_nodes`` and ``node_axes``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported: the sharded driver waits for ROADMAP "
-            "Queue 1 item 4; pass mesh=None")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     dev = resolve_device(device)
@@ -846,6 +1184,8 @@ def seeker_fleet_simulate_streamed(
     tel_spec = _resolve_telemetry(telemetry, intermittent, task)
     if noise is None and generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
+    engine = (seeker_fleet_simulate if mesh is None else functools.partial(
+        seeker_fleet_simulate_sharded, mesh=mesh))
     active = _active_lanes(intermittent, task, brownout)
     trace_keys = fleet_trace_keys(active)
     counter_keys = fleet_counter_keys(active)
@@ -873,8 +1213,8 @@ def seeker_fleet_simulate_streamed(
         with obs_trace.span("fleet.segment", cat="fleet",
                             args={"start": start, "stop": stop},
                             flush=lambda: res["decisions"]):
-            res = seeker_fleet_simulate(window_fn(start, stop),
-                                        harvest[:, start:stop], **seg)
+            res = engine(window_fn(start, stop), harvest[:, start:stop],
+                         **seg)
         state, browned = res["final_state"], res["final_brownout"]
         it_state = res.get("final_intermittent")
         tel_state = res.get("telemetry")
@@ -909,6 +1249,9 @@ def seeker_fleet_simulate_streamed(
         if task is not None:
             out["accuracy_by_task"] = out["correct_by_task"] / torch.clamp(
                 counters["completed_by_task"], min=1)
+    if mesh is not None:
+        out["padded_nodes"] = res["padded_nodes"]
+        out["node_axes"] = res["node_axes"]
     return out
 
 

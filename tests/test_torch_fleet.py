@@ -251,13 +251,14 @@ def test_default_device_is_cuda_and_never_falls_back(setup, monkeypatch):
 @pytest.mark.parametrize("lane", ["task", "telemetry", "mesh"])
 def test_task_and_telemetry_run_and_mesh_raises(setup, lane):
     """The task and telemetry lanes run (their parity with JAX is
-    tests/test_torch_tasks.py's); the sharded driver is not ported, so the
-    streamed driver's ``mesh=`` raises, naming its ROADMAP item."""
+    tests/test_torch_tasks.py's); the streamed driver's ``mesh=`` must be a
+    ``DeviceMesh`` (the sharded runs are tests/test_torch_sharded.py's), and
+    anything else raises ``ValueError``."""
     d = setup
     args = (np.asarray(d["wins"]), np.asarray(d["harvest"]))
     if lane == "mesh":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 4"):
+        with pytest.raises(ValueError, match="must be a torch.distributed"
+                                             ".device_mesh.DeviceMesh"):
             repro_torch.seeker_fleet_simulate_streamed(
                 *args, chunk=2, mesh=object(), device="cpu", **d["port"])
         return

@@ -580,18 +580,16 @@ def test_error_paths(setup, mesh, case):
     jkw = dict(host_params=setup["params"], har_cfg=HAR, mesh=mesh,
                key=setup["key"])
     tkw = dict(host_params=setup["t_params"], har_cfg=THAR, device="cpu")
-    if case == "mesh":
-        msg = _raises(lambda: fleet_serve_step(t_wins, mesh=mesh, **tkw),
-                      NotImplementedError)
-        assert "ROADMAP Queue 1 item 4" in msg and "mesh" in msg
-        return
-    if case == "per_shard_host":
-        msg = _raises(lambda: fleet_serve_step(
-            t_wins, per_shard_host=True,
-            host_state=thost.host_server_init(_cfg(thost), "cpu"),
-            serve_cfg=_cfg(thost), gen_params=setup["t_gen"], **tkw),
-            NotImplementedError)
-        assert "ROADMAP Queue 1 item 4" in msg and "per_shard_host" in msg
+    if case in ("mesh", "per_shard_host"):
+        # the port's mesh is a torch DeviceMesh; a JAX mesh is refused
+        extra = ({} if case == "mesh" else dict(
+            per_shard_host=True,
+            host_state=thost.host_server_init_stacked(_cfg(thost), 1, "cpu"),
+            serve_cfg=_cfg(thost), gen_params=setup["t_gen"]))
+        msg = _raises(lambda: fleet_serve_step(t_wins, mesh=mesh, **extra,
+                                               **tkw))
+        assert msg == ("mesh must be a torch.distributed.device_mesh."
+                       "DeviceMesh, got Mesh")
         return
     if case in _CONFIG_CASES:
         want = _raises(lambda: _cfg(jhost, **_CONFIG_CASES[case]))
