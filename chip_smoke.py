@@ -80,7 +80,26 @@ Phases (any failure exits non-zero and prints no result):
    "data") mesh at N=3001 (3 padding nodes), S=4, each rank's result equal
    to a one-rank run; with ms/slot, device busy, launches and
    synchronisations a slot, and the collectives' time;
-10. the kernel table as one JSON line, then the result line.
+10. the paper's per-sensor path: (a) the oracle
+   ``seeker_simulate_reference`` at HAR's full width with an AAC table, 3
+   sensors on a 128-window stream under the wifi and piezo sources,
+   against ``seeker_simulate`` from the same generator seed (decisions, k
+   and payloads exactly equal, stored energy within 1e-4, preds on at least
+   99% of slots) and against a CPU run of the plain versions with the same
+   noise (decisions on at least 99% of slots), with the ms/slot of both,
+   the launches of each (one ``signature_corr`` and one ``kmeans_coreset``
+   a sensor-slot, three ``fake_quant`` plus four for the weights), and the
+   three kernels held against their plain versions at the oracle's
+   one-node shapes; (b) one ``seeker_sensor_step`` on N=3000 bearing
+   windows at ``BEARING``'s width (120, 1), k=18, m=20, against the CPU
+   plain step (decisions on at least 99% of nodes, coreset k and counts
+   exactly); (c) the DCT, DWT and Fourier codecs at m=14, the
+   deterministic top-m sampler (JAX's indices on a flat window),
+   ``memo_decision`` and the single-cloud ``kmeans_coreset`` on 3000 HAR
+   windows, each against its CPU run;
+11. the kernel table as one JSON line (each kernel's launches on every
+   path, ``per_sensor_oracle``, ``bearing_step`` and ``codecs`` among
+   them), then the result line.
 """
 import json
 import subprocess
@@ -106,6 +125,13 @@ SHARD_RANKS, SHARD_GLOO_N, SHARD_GLOO_SLOTS = 4, 3001, 4
 # configs/seeker_har.py BEARING: 120-sample windows, 1 channel, and
 # SYSTEM.bearing_clusters
 BEARING_T, BEARING_K = 120, 18
+# phase 10: the per-sensor oracle on the 128-window stream of
+# benchmarks/fig11_system.py:40 (fig12_endtoend.py:51), 3 sensors, under
+# fig11's wifi source and piezo; the codecs at fig10_commercial.py's m=14
+ORACLE_SLOTS, ORACLE_SENSORS = 128, 3
+ORACLE_SOURCES = ("wifi", "piezo")
+ORACLE_PROFILE_SLOTS = 8       # the profiled head of the stream
+CODEC_M = 14
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 REPO = Path(__file__).resolve().parent
@@ -1758,6 +1784,364 @@ def phase_sharded(torch, dev) -> dict:
     return out
 
 
+def _hold_at(torch, match, kernel_fn, plain_fn, nbytes, flops, exact):
+    """One kernel against its plain version on the card at a shape of this
+    slice's paths: bit-equal (``exact``) or within 1e-4, integer outputs
+    equal; with its device time (the profiler's kernels whose name holds
+    ``match``), the plain version's and its bound."""
+    got, want = kernel_fn(), plain_fn()
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    err = 0.0
+    for g_out, w_out in zip(got, want):
+        if exact:
+            _assert_same_bits(torch, g_out, w_out, match)
+        elif g_out.is_floating_point():
+            torch.testing.assert_close(g_out, w_out, rtol=0, atol=1e-4)
+            err = max(err, float((g_out - w_out).abs().max()))
+        else:
+            assert torch.equal(g_out, w_out), match
+    _same_twice(torch, kernel_fn)
+    times, extra = _timings(torch, kernel_fn, match, plain_fn)
+    bound, by = _bound_ms(nbytes, flops)
+    return dict(max_abs_err=err, bound_ms=bound, bound_by=by,
+                call_ms=extra["call_ms"], **times)
+
+
+def _oracle_shapes(torch, dev, windows, sigs, qp) -> dict:
+    """The three kernels at the per-sensor oracle's shapes (one node a
+    call): ``signature_corr`` (1, 60, 3) against the 12-signature bank,
+    ``kmeans_coreset`` on the window's 3 channel clouds of (60, 2) and
+    D2's three per-node ``fake_quant`` activations, each against its plain
+    version (``fake_quant`` bit for bit)."""
+    from repro_torch.core.coreset import points_from_window
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.har import _conv1d, _maxpool2
+
+    rows = {}
+    win = windows[:1].contiguous()                           # (1, 60, 3)
+    t, c = win.shape[1:]
+    l = sigs.shape[0]
+    rows["signature_corr (1, 60, 3)"] = _hold_at(
+        torch, "signature_corr_kernel",
+        lambda: ops.signature_corr_op(win, sigs),
+        lambda: ref.signature_corr_ref(win, sigs),
+        4 * (t * c + l * t * c + l), 2 * l * t * c + 6 * t * c, exact=False)
+    pts = points_from_window(win[0].T[..., None]).contiguous()  # (3, 60, 2)
+    nb, n, d = pts.shape
+    k, iters = HOST_K, 4
+    rows["kmeans_coreset (3, 60, 2)"] = _hold_at(
+        torch, "kmeans_coreset_kernel", lambda: ops.kmeans_coreset_op(pts, k),
+        lambda: ref.kmeans_coreset_ref(pts, k),
+        4 * (nb * n * d + nb * k * d + 2 * nb * k),
+        ((iters + 1) * nb * n * k * 3 * d + iters * nb * n * d
+         + iters * nb * k * d + nb * n), exact=False)
+    # D2's activations of one node, as _quantized_forward feeds them
+    h1 = _maxpool2(torch.relu(_conv1d(win, qp["conv1_w"], qp["conv1_b"])))
+    h2 = _maxpool2(torch.relu(_conv1d(h1, qp["conv2_w"], qp["conv2_b"])))
+    for x in (win, h1.contiguous(), h2.contiguous()):
+        rows[f"fake_quant {tuple(x.shape)}"] = _hold_at(
+            torch, "fake_quant",
+            lambda x=x: ops.fake_quant_op(x, 16, per_sample=True),
+            lambda x=x: _fake_quant_plain(ref, x, 16, per_sample=True)[0],
+            2 * 4 * x.numel(), 7 * x.numel(), exact=True)
+    for name, row in rows.items():
+        print(f"  oracle shape {name}: device ms kernel {row['ms']}, plain "
+              f"{row['plain_ms']}, bound {row['bound_ms']} ({row['bound_by']})"
+              f", per call with launch {row['call_ms']}")
+    return rows
+
+
+def _oracle_inputs(torch, dev):
+    """Phase 10 (a)'s system at HAR's full width from seed 10: weights, the
+    generator, the signature bank, an AAC table over k = 4, 6, 8, 12 and a
+    128-window HAR stream."""
+    from repro_torch.configs.seeker_har import HAR
+    from repro_torch.core.aac import make_aac_table
+    from repro_torch.core.recovery import init_generator
+    from repro_torch.data.sensors import class_signatures, har_stream
+    from repro_torch.models.har import har_init
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    params = har_init(g, HAR)
+    kw = dict(signatures=class_signatures(device=dev), qdnn_params=params,
+              host_params=params,
+              gen_params=init_generator(g, HAR.window, HAR.channels),
+              har_cfg=HAR, n_sensors=ORACLE_SENSORS,
+              aac_table=make_aac_table(
+                  0.6 + 0.3 * torch.rand((HAR.n_classes, 4), generator=g,
+                                         device=dev), [4, 6, 8, 12], dev))
+    windows, labels = har_stream(g, ORACLE_SLOTS)
+    return g, windows, labels, kw
+
+
+def _oracle_source(torch, dev, g, windows, labels, kw, source: str,
+                   first: bool) -> dict:
+    """Phase 10 (a) under one harvest source: the oracle against
+    ``seeker_simulate`` from the same generator seed on the card, and
+    against a CPU run of the plain versions with the same noise.  The
+    ``first`` source warms both up before the timed runs and profiles
+    both over the stream's first ``ORACLE_PROFILE_SLOTS`` slots after
+    (the profiler's cost grows with the launches it records)."""
+    import repro_torch
+    from repro_torch.core.energy import harvest_trace
+    from repro_torch.kernels import ops
+    from repro_torch.serving.fleet import draw_fleet_noise, to_device
+
+    s, n = ORACLE_SLOTS, ORACLE_SENSORS
+    t, c = windows.shape[1:]
+    harvest = harvest_trace(g, s, source)
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    runs = {}
+    for name, fn in (("oracle", repro_torch.seeker_simulate_reference),
+                     ("fleet", repro_torch.seeker_simulate)):
+        def run(fn=fn, slots=s):
+            return fn(windows[:slots], labels[:slots], harvest[:slots],
+                      generator=seeded(), device=dev, **kw)
+
+        if first:
+            run()
+            torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        runs[name] = dict(res=res, secs=time.perf_counter() - t0,
+                          launches=ops.launch_counts())
+        if first:
+            def head(run=run):
+                return run(slots=ORACLE_PROFILE_SLOTS)
+
+            t1 = time.perf_counter()
+            head()
+            torch.cuda.synchronize()
+            runs[name]["profile"] = _profile(
+                torch, head, ORACLE_PROFILE_SLOTS, time.perf_counter() - t1,
+                f"{name}_{source}")
+    oracle, fleet = runs["oracle"]["res"], runs["fleet"]["res"]
+    want = {"oracle": {"signature_corr": s * n, "kmeans_coreset": s * n,
+                       "fake_quant": 3 * s * n + 4, "importance_select": 0},
+            "fleet": {"signature_corr": s, "kmeans_coreset": s,
+                      "fake_quant": 3 * s + 4, "importance_select": 0}}
+    for name, run in runs.items():
+        print(f"  {source} {name} launches {run['launches']}, expected "
+              f"{want[name]}")
+        assert run["launches"] == want[name], (name, run["launches"])
+    for key in ("decisions", "k_trace", "payload_bytes"):
+        assert torch.equal(oracle[key], fleet[key]), (source, key)
+    stored_err = float((oracle["stored_uj"] - fleet["stored_uj"]).abs().max())
+    assert stored_err <= 1e-4, (source, stored_err)
+    pred_agree = float((oracle["preds"] == fleet["preds"]).float().mean())
+    assert pred_agree >= 0.99, (source, pred_agree)
+    assert bool(torch.isfinite(oracle["stored_uj"]).all())
+
+    noise = draw_fleet_noise(seeded(), s, n, t, c)
+    cpu_kw = {k: v if k in ("har_cfg", "n_sensors") else to_device(v, "cpu")
+              for k, v in kw.items()}
+    t1 = time.perf_counter()
+    cpu = repro_torch.seeker_simulate_reference(
+        windows.cpu(), labels.cpu(), harvest.cpu(),
+        noise={k: v.cpu() for k, v in noise.items()}, device="cpu", **cpu_kw)
+    cpu_secs = time.perf_counter() - t1
+    cpu_agree = float((cpu["decisions"] == oracle["decisions"].cpu())
+                      .float().mean())
+    assert cpu_agree >= 0.99, (source, cpu_agree)
+    hist = torch.bincount(oracle["decisions"].long(), minlength=6).tolist()
+    out = dict(
+        source=source,
+        oracle_ms_per_slot=runs["oracle"]["secs"] / s * 1e3,
+        fleet_ms_per_slot=runs["fleet"]["secs"] / s * 1e3,
+        cpu_oracle_seconds=cpu_secs, decision_histogram=hist,
+        stored_max_abs_diff=stored_err, pred_agreement=pred_agree,
+        cpu_decision_agreement=cpu_agree,
+        completed_frac=float(oracle["completed_frac"]),
+        launches={k: v["launches"] for k, v in runs.items()},
+        profile={k: v["profile"] for k, v in runs.items() if "profile" in v})
+    print(f"  {source}: oracle {out['oracle_ms_per_slot']:.3f} ms/slot, "
+          f"fleet {out['fleet_ms_per_slot']:.3f} ms/slot; decisions, k and "
+          f"payloads equal, stored within {stored_err:.3g}, preds agree on "
+          f"{pred_agree:.6f}; the CPU plain oracle's decisions on "
+          f"{cpu_agree:.6f} ({cpu_secs:.1f} s); histogram (D0..D4, DEFER) "
+          f"{hist}")
+    return out
+
+
+def _bearing_step(torch, dev) -> dict:
+    """Phase 10 (b): one ``seeker_sensor_step`` on N=3000 bearing windows at
+    ``BEARING``'s width (120, 1), k=18, m=20, 16-bit D2, against the same
+    step on the CPU through the plain versions."""
+    import repro_torch
+    from repro_torch.configs.seeker_har import BEARING
+    from repro_torch.core.aac import make_aac_table
+    from repro_torch.core.energy import EnergyCosts, fleet_harvest_traces
+    from repro_torch.data.sensors import bearing_dataset, bearing_windows
+    from repro_torch.kernels import ops
+    from repro_torch.models.har import har_init, quantize_params
+    from repro_torch.serving.fleet import fleet_node_init, to_device
+
+    n = N_NODES
+    g = torch.Generator(device=dev).manual_seed(11)
+    params = har_init(g, BEARING)
+    windows, _ = bearing_dataset(g, n)                         # (3000, 120, 1)
+    sigs = bearing_windows(g, torch.arange(BEARING.n_classes, device=dev))
+    state = fleet_node_init(n, device=dev)._replace(
+        stored_uj=120.0 * torch.rand((n,), generator=g, device=dev),
+        prev_label=torch.randint(0, BEARING.n_classes, (n,), generator=g,
+                                 device=dev, dtype=torch.int32))
+    harvest = fleet_harvest_traces(g, n, 1)[:, 0]
+    u = torch.clamp(torch.rand((n, BEARING.window), generator=g, device=dev),
+                    min=1e-9)
+    inputs = dict(
+        signatures=sigs, aac_table=make_aac_table(
+            0.6 + 0.3 * torch.rand((BEARING.n_classes, 4), generator=g,
+                                   device=dev), [6, 10, 14, BEARING_K], dev))
+
+    def step(d, kw, qp):
+        return repro_torch.seeker_sensor_step(
+            d["windows"], d["state"], d["harvest"], d["u"],
+            signatures=kw["signatures"], qp=qp, aac_table=kw["aac_table"],
+            costs=EnergyCosts(), k_max=BEARING_K, m_samples=IMPORTANCE_M,
+            quant_bits=16)
+
+    data = dict(windows=windows, state=state, harvest=harvest, u=u)
+    qp = quantize_params(params, 16)
+    ops.reset_launch_counts()
+    out = step(data, inputs, qp)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = {"signature_corr": 1, "kmeans_coreset": 1, "fake_quant": 3,
+            "importance_select": 0}
+    print(f"  bearing step launches {launches}, expected {want}")
+    assert launches == want, launches
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step(data, inputs, qp)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / 5
+    cpu = step(to_device(data, "cpu"), to_device(inputs, "cpu"),
+               quantize_params(to_device(params, "cpu"), 16))
+    agree = float((cpu.decision == out.decision.cpu()).float().mean())
+    assert agree >= 0.99, agree
+    assert torch.equal(cpu.coreset_k, out.coreset_k.cpu())
+    counts_equal = float((cpu.coreset_counts == out.coreset_counts.cpu())
+                         .all(dim=-1).all(dim=-1).float().mean())
+    assert counts_equal == 1.0, counts_equal
+    assert out.coreset_centers.shape == (n, 1, BEARING_K, 2)
+    assert bool(torch.isfinite(out.logits).all())
+    hist = torch.bincount(out.decision.long(), minlength=6).tolist()
+    print(f"  bearing step N={n} (120, 1) k={BEARING_K}: {secs * 1e3:.3f} ms "
+          f"a step; decisions agree with the CPU plain step on {agree:.6f}, "
+          f"coreset k and counts equal; histogram (D0..D4, DEFER) {hist}")
+    return dict(nodes=n, ms_per_step=secs * 1e3, decision_agreement=agree,
+                decision_histogram=hist, launches=launches)
+
+
+def _codecs(torch, dev) -> dict:
+    """Phase 10 (c): the classical codecs at m=14, the deterministic top-m
+    sampler, ``memo_decision`` and the single-cloud ``kmeans_coreset`` on
+    3000 HAR windows, each against its CPU run."""
+    from repro_torch.core import classical
+    from repro_torch.core.coreset import (kmeans_coreset, points_from_window,
+                                          topk_importance_coreset)
+    from repro_torch.core.memo import memo_decision
+    from repro_torch.data.sensors import class_signatures, har_windows
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    labels = torch.randint(0, 12, (N_NODES,), generator=g, device=dev)
+    windows = har_windows(g, labels).contiguous()             # (3000, 60, 3)
+    sigs = class_signatures(device=dev)
+    windows[:16] = sigs[labels[:16]]                          # exact hits
+    cpu_w, out = windows.cpu(), {}
+    for name in ("dct_compress", "dwt_compress", "fourier_compress"):
+        fn = getattr(classical, name)
+        got = fn(windows, CODEC_M)
+        err = float((got.cpu() - fn(cpu_w, CODEC_M)).abs().max())
+        assert err <= 1e-4, (name, err)
+        out[name] = dict(max_abs_err=err,
+                         ms=_time_ms(torch, lambda fn=fn: fn(windows, CODEC_M),
+                                     reps=10))
+    got = topk_importance_coreset(windows, IMPORTANCE_M)
+    want = topk_importance_coreset(cpu_w, IMPORTANCE_M)
+    assert torch.equal(got.indices.cpu(), want.indices)
+    torch.testing.assert_close(got.weights.cpu(), want.weights, rtol=1e-4,
+                               atol=1e-5)
+    flat = topk_importance_coreset(torch.ones((60, 3), device=dev),
+                                   IMPORTANCE_M)
+    assert flat.indices.tolist() == list(range(IMPORTANCE_M)), flat.indices
+    out["topk_importance_coreset"] = dict(
+        ms=_time_ms(torch, lambda: topk_importance_coreset(windows,
+                                                           IMPORTANCE_M),
+                    reps=10))
+    # the card's launches: memo_decision, then the single-cloud k-means on
+    # 16 windows lifted to (60, 4) clouds
+    clouds = [points_from_window(windows[i]) for i in range(16)]
+    ops.reset_launch_counts()
+    memo = memo_decision(windows, sigs)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    clustered = [kmeans_coreset(pts, HOST_K) for pts in clouds]
+    torch.cuda.synchronize()
+    launches_all = ops.launch_counts()
+    assert launches == dict(signature_corr=1, fake_quant=0, kmeans_coreset=0,
+                            importance_select=0), launches
+    assert launches_all["kmeans_coreset"] == 16, launches_all
+    cpu_memo = memo_decision(cpu_w, sigs.cpu())
+    assert torch.equal(memo.label.cpu(), cpu_memo.label)
+    assert torch.equal(memo.hit.cpu(), cpu_memo.hit)
+    assert bool(memo.hit[:16].all()) and torch.equal(memo.label[:16],
+                                                     labels[:16].int())
+    torch.testing.assert_close(memo.max_corr.cpu(), cpu_memo.max_corr,
+                               rtol=0, atol=1e-4)
+    for i, (pts, a) in enumerate(zip(clouds, clustered)):
+        b = kmeans_coreset(pts.cpu(), HOST_K)
+        assert torch.equal(a.counts.cpu(), b.counts), i
+        torch.testing.assert_close(a.centers.cpu(), b.centers, rtol=0,
+                                   atol=1e-4)
+    print(f"  codecs at m={CODEC_M} on {tuple(windows.shape)}: "
+          + ", ".join(f"{k} {v['ms']:.3f} ms" for k, v in out.items())
+          + f"; within 1e-4 of the CPU run, top-m indices equal, memo hits "
+          f"{int(memo.hit.sum())} equal; launches {launches_all}")
+    out["launches"] = launches_all
+    return out
+
+
+def phase_paper_path(torch, dev) -> dict:
+    """Phase 10: the paper's per-sensor path.  (a) the oracle
+    ``seeker_simulate_reference`` against ``seeker_simulate`` under two
+    harvest sources, with its kernels held at the oracle's shapes; (b)
+    ``BEARING``'s sensor step at N=3000; (c) the codecs."""
+    from repro_torch.models.har import quantize_params
+
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
+    g, windows, labels, kw = _oracle_inputs(torch, dev)
+    shapes = _oracle_shapes(torch, dev, windows, kw["signatures"],
+                            quantize_params(kw["qdnn_params"], 16))
+    mark("oracle_shapes")
+    sources = []
+    for i, src in enumerate(ORACLE_SOURCES):
+        sources.append(_oracle_source(torch, dev, g, windows, labels, kw, src,
+                                      first=i == 0))
+        mark(f"oracle_{src}")
+    bearing = _bearing_step(torch, dev)
+    mark("bearing_step")
+    codecs = _codecs(torch, dev)
+    mark("codecs")
+    seconds = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
+    secs = marks[-1][1] - marks[0][1]
+    print(f"phase 10: {secs:.1f} s; " + ", ".join(
+        f"{name} {v:.1f} s" for name, v in seconds.items()))
+    return dict(oracle=sources, oracle_shapes=shapes, bearing_step=bearing,
+                codecs=codecs, seconds=secs, seconds_by_part=seconds)
+
+
 def _first_row(x):
     """Row 0 of a stacked state (tensors, named tuples, dicts)."""
     if isinstance(x, tuple) and hasattr(x, "_fields"):
@@ -1781,6 +2165,7 @@ def main() -> int:
     streamed = phase_streamed(torch, dev)
     host_serve = phase_host_serve(torch, dev, feed)
     sharded = phase_sharded(torch, dev)
+    paper = phase_paper_path(torch, dev)
     # each kernel's launches on every path, each counted from zero;
     # ``launches`` is its main path's: the fleet's three, and the sampler's
     # entry point
@@ -1795,7 +2180,10 @@ def main() -> int:
                "sharded_per_shard_host": sharded["per_shard_host"]["launches"],
                "sharded_edge_host": sharded["edge_host"]["launches"],
                "sharded_gloo_rank0":
-                   sharded["gloo_ranks"]["launches_per_rank"][0]}
+                   sharded["gloo_ranks"]["launches_per_rank"][0],
+               "per_sensor_oracle": paper["oracle"][0]["launches"]["oracle"],
+               "bearing_step": paper["bearing_step"]["launches"],
+               "codecs": paper["codecs"]["launches"]}
     launches = dict(fleet_launches,
                     importance_select=importance["importance_select"])
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -1808,7 +2196,8 @@ def main() -> int:
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, kernels=kernels, timing=extra, ptxas=ptxas,
              fleet=fleet, scarce_fleet=scarce, task_fleet=task_fleet,
-             streamed=streamed, host_serve=host_serve, sharded=sharded),
+             streamed=streamed, host_serve=host_serve, sharded=sharded,
+             paper_path=paper),
         indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -10,5 +10,6 @@ from .serving import (  # noqa: F401
     TaskLaneConfig, edge_host_serve_step, fleet_serve_step,
     fleet_task_assignment, fleet_telemetry_spec, seeker_fleet_simulate,
     seeker_fleet_simulate_sharded, seeker_fleet_simulate_streamed,
-    seeker_simulate, stack_task_params,
+    seeker_sensor_step, seeker_simulate, seeker_simulate_reference,
+    stack_task_params,
 )

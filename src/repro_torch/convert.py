@@ -14,7 +14,7 @@ import torch
 
 from .core.aac import AACTable
 from .core.energy import PredictorState
-from .core.recovery import GeneratorParams
+from .core.recovery import DiscriminatorParams, GeneratorParams
 from .host.cache import RecoveryCache
 from .host.queue import PayloadQueue
 from .host.server import HostPayload, HostServerState
@@ -22,10 +22,10 @@ from .serving.edge_host import (IntermittentState, SeekerNodeState,
                                 WirePayload, WireSamplePayload)
 
 __all__ = ["tensor", "har_params", "aux_params", "generator_params",
-           "aac_table", "node_state", "intermittent_state",
-           "task_host_params", "telemetry_state", "wire_payload",
-           "wire_sample_payload", "host_payload", "host_server_state",
-           "to_numpy"]
+           "discriminator_params", "aac_table", "node_state",
+           "intermittent_state", "task_host_params", "telemetry_state",
+           "wire_payload", "wire_sample_payload", "host_payload",
+           "host_server_state", "to_numpy"]
 
 
 def tensor(x, dtype: torch.dtype | None = None, device=None) -> torch.Tensor:
@@ -47,6 +47,13 @@ def generator_params(params, device=None) -> GeneratorParams:
     """``repro.core.recovery.GeneratorParams`` -> the port's."""
     return GeneratorParams(*(tensor(getattr(params, f), torch.float32, device)
                              for f in GeneratorParams._fields))
+
+
+def discriminator_params(params, device=None) -> DiscriminatorParams:
+    """``repro.core.recovery.DiscriminatorParams`` -> the port's."""
+    return DiscriminatorParams(*(tensor(getattr(params, f), torch.float32,
+                                        device)
+                                 for f in DiscriminatorParams._fields))
 
 
 def aac_table(table, device=None) -> AACTable:

@@ -6,10 +6,12 @@ fleet's ``vmap`` over nodes written out.
 
 * :func:`channel_cluster_coresets` builds every channel's k-means coreset
   of every window in ONE :func:`repro_torch.kernels.ops.kmeans_coreset_op`
-  call over ``(N·C, T, 2)`` point clouds.
+  call over ``(N·C, T, 2)`` point clouds; :func:`kmeans_coreset` runs one
+  cloud through the same op.
 * :func:`importance_coreset` takes its Gumbel noise as a tensor of
   uniforms ``u`` instead of a PRNG key, so a test can hand it the numbers
-  JAX drew.
+  JAX drew; :func:`topk_importance_coreset` is its deterministic top-m
+  twin, with no noise at all.
 """
 from __future__ import annotations
 
@@ -23,8 +25,9 @@ from ..kernels.ops import kmeans_coreset_op
 
 __all__ = [
     "ClusterCoreset", "SamplingCoreset", "unit_grid", "points_from_window",
-    "window_from_points", "channel_cluster_coresets", "importance_weights",
-    "importance_coreset", "quantize_uniform", "dequantize_uniform",
+    "window_from_points", "channel_cluster_coresets", "kmeans_coreset",
+    "importance_weights", "importance_coreset", "topk_importance_coreset",
+    "quantize_uniform", "dequantize_uniform",
     "EncodedClusterCoreset", "encode_cluster_coreset",
     "decode_cluster_coreset", "raw_payload_bytes", "cluster_payload_bytes",
     "sampling_payload_bytes",
@@ -133,6 +136,21 @@ def channel_cluster_coresets(window: torch.Tensor, k: int,
                           counts=counts.reshape(lead + (c, k)))
 
 
+def kmeans_coreset(points: torch.Tensor, k: int,
+                   iters: int = 4) -> ClusterCoreset:
+    """Lloyd's k-means with a fixed iteration budget (paper: 4) on one
+    (N, D) point cloud (:func:`points_from_window` lifts a window to one),
+    from the evenly strided init
+    (:func:`repro_torch.kernels.ref.kmeans_init_centers`): centers (k, D),
+    radii (k,) and int32 counts (k,).  One :func:`kmeans_coreset_op`
+    launch; argmin ties go to the lower cluster index, as ``jnp.argmin``'s
+    do."""
+    centers, radii, counts = kmeans_coreset_op(
+        points.to(torch.float32)[None].contiguous(), k, iters)
+    return ClusterCoreset(centers=centers[0], radii=radii[0],
+                          counts=counts[0])
+
+
 # ---------------------------------------------------------------------------
 # Importance-sampling coreset
 # ---------------------------------------------------------------------------
@@ -178,6 +196,28 @@ def importance_coreset(window: torch.Tensor, m: int, u: torch.Tensor,
     g = -torch.log(-torch.log(u))
     scores = torch.log(torch.clamp(w, min=1e-12)) + g
     idx = torch.sort(torch.topk(scores, m, dim=-1).indices, dim=-1).values
+    return _sampling_coreset(window, w, idx, m)
+
+
+def topk_importance_coreset(window: torch.Tensor, m: int,
+                            spread: float = 0.25) -> SamplingCoreset:
+    """Deterministic variant: the m largest importance weights, what the
+    paper's fixed-function sampler computes when no RNG is available.
+    Equal weights go to the lower index, as ``jax.lax.top_k``'s do (a
+    stable descending sort; ``torch.topk`` orders ties arbitrarily)."""
+    if window.ndim == 1:
+        window = window[:, None]
+    w = importance_weights(window, spread=spread)
+    top = torch.sort(w, dim=-1, descending=True, stable=True).indices
+    idx = torch.sort(top[..., :m], dim=-1).values
+    return _sampling_coreset(window, w, idx, m)
+
+
+def _sampling_coreset(window: torch.Tensor, w: torch.Tensor,
+                      idx: torch.Tensor, m: int) -> SamplingCoreset:
+    """The picked samples ``idx`` (..., m) of (..., T, C) windows with
+    their Horvitz-Thompson weights ``1 / (m w)`` and the full windows'
+    moments."""
     mean = window.mean(dim=-2)
     var = ((window - window.mean(dim=-2, keepdim=True)) ** 2).mean(dim=-2)
     values = window.gather(

@@ -10,19 +10,23 @@ them the numbers JAX drew:
 * :func:`recover_sampling_window` takes the ``(16,)`` normal latent
   (``recovery.py:167``).
 
-Every function also takes a leading batch of nodes.
+Every function also takes a leading batch of nodes.  The discriminator
+(:func:`init_discriminator`, :func:`discriminator_apply`) is the critic
+that trains the generator; no serving path calls it.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from .coreset import ClusterCoreset, SamplingCoreset, window_from_points
 
 __all__ = ["recover_cluster_points", "recover_cluster_window",
            "GeneratorParams", "init_generator", "generator_apply",
-           "recover_sampling_window"]
+           "recover_sampling_window", "DiscriminatorParams",
+           "init_discriminator", "discriminator_apply"]
 
 
 def _uniform_in_ball(dirs: torch.Tensor,
@@ -83,26 +87,31 @@ class GeneratorParams(NamedTuple):
     b3: torch.Tensor
 
 
-def init_generator(generator: torch.Generator, t: int, channels: int,
-                   latent: int = 16, hidden: int = 128,
-                   n_classes: int = 0) -> GeneratorParams:
-    """Generator g(noise, mean, std[, class]) -> (T, C) window, on the
-    torch generator's device."""
+def _mlp3(generator: torch.Generator, in_dim: int, hidden: int,
+          out_dim: int) -> tuple[torch.Tensor, ...]:
+    """Three dense layers, normal / sqrt(fan_in) weights and zero biases,
+    on the torch generator's device."""
     dev = generator.device
-    in_dim = latent + 2 * channels + n_classes
-    out_dim = t * channels
 
     def normal(shape, fan_in):
         return (torch.randn(shape, generator=generator, device=dev)
                 / fan_in ** 0.5)
 
-    return GeneratorParams(
-        w1=normal((in_dim, hidden), in_dim),
-        b1=torch.zeros((hidden,), device=dev),
-        w2=normal((hidden, hidden), hidden),
-        b2=torch.zeros((hidden,), device=dev),
-        w3=normal((hidden, out_dim), hidden),
-        b3=torch.zeros((out_dim,), device=dev))
+    return (normal((in_dim, hidden), in_dim),
+            torch.zeros((hidden,), device=dev),
+            normal((hidden, hidden), hidden),
+            torch.zeros((hidden,), device=dev),
+            normal((hidden, out_dim), hidden),
+            torch.zeros((out_dim,), device=dev))
+
+
+def init_generator(generator: torch.Generator, t: int, channels: int,
+                   latent: int = 16, hidden: int = 128,
+                   n_classes: int = 0) -> GeneratorParams:
+    """Generator g(noise, mean, std[, class]) -> (T, C) window, on the
+    torch generator's device."""
+    return GeneratorParams(*_mlp3(generator, latent + 2 * channels
+                                  + n_classes, hidden, t * channels))
 
 
 def generator_apply(params: GeneratorParams, noise: torch.Tensor,
@@ -133,3 +142,33 @@ def recover_sampling_window(params: GeneratorParams, cs: SamplingCoreset,
                             t=t)
     idx = cs.indices.to(torch.int64)[..., None].expand(cs.values.shape)
     return synth.scatter(-2, idx, cs.values)
+
+
+# ---------------------------------------------------------------------------
+# Discriminator (training-time only)
+# ---------------------------------------------------------------------------
+
+class DiscriminatorParams(NamedTuple):
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+    w3: torch.Tensor
+    b3: torch.Tensor
+
+
+def init_discriminator(generator: torch.Generator, t: int, channels: int,
+                       hidden: int = 128) -> DiscriminatorParams:
+    """Critic d((T, C) window) -> realness score, on the torch generator's
+    device."""
+    return DiscriminatorParams(*_mlp3(generator, t * channels, hidden, 1))
+
+
+def discriminator_apply(params: DiscriminatorParams,
+                        window: torch.Tensor) -> torch.Tensor:
+    """(..., T, C) windows -> (...) scores: three dense layers with
+    leaky-ReLU (slope 0.2) between them."""
+    h = window.reshape(window.shape[:-2] + (-1,))
+    h = F.leaky_relu(h @ params.w1 + params.b1, 0.2)
+    h = F.leaky_relu(h @ params.w2 + params.b2, 0.2)
+    return (h @ params.w3 + params.b3)[..., 0]

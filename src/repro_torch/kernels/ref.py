@@ -13,8 +13,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["kmeans_coreset_ref", "importance_select_ref",
-           "signature_corr_ref", "fake_quant_ref", "fake_quant_scale"]
+__all__ = ["kmeans_init_centers", "kmeans_coreset_ref",
+           "importance_select_ref", "signature_corr_ref", "fake_quant_ref",
+           "fake_quant_scale"]
+
+
+def kmeans_init_centers(points: torch.Tensor, k: int) -> torch.Tensor:
+    """The evenly strided init of ``repro.core.coreset._init_centers``:
+    points ``(i * N) // k`` for i < k of each (..., N, D) cloud, with no RNG
+    on the sensor.  The CUDA kernel starts from the same points."""
+    n = points.shape[-2]
+    return points[..., (torch.arange(k, device=points.device) * n) // k, :]
 
 
 def kmeans_coreset_ref(points: torch.Tensor, k: int, iters: int = 4):
@@ -23,9 +32,7 @@ def kmeans_coreset_ref(points: torch.Tensor, k: int, iters: int = 4):
     points (B, N, D) float32 -> (centers (B,k,D), radii (B,k),
     counts (B,k) int32).  An empty cluster keeps its centre; argmin ties go
     to the lowest index."""
-    b, n, d = points.shape
-    stride_idx = (torch.arange(k, device=points.device) * n) // k
-    centers = points[:, stride_idx, :]                      # (B, k, D)
+    centers = kmeans_init_centers(points, k)                # (B, k, D)
     for _ in range(iters):
         d2 = ((points[:, :, None, :] - centers[:, None, :, :]) ** 2).sum(-1)
         assign = torch.argmin(d2, dim=-1)                   # (B, N)

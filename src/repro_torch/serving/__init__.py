@@ -1,10 +1,11 @@
-"""The Seeker slot for a batch of nodes, the intermittent lane, the lane
-registry, the fleet engine (single-device and node-sharded) and its
-streamed driver, the edge-to-host wire format, the fleet's serve step and
-the pod-paired edge/host step."""
+"""The Seeker slot for a batch of nodes, the per-sensor oracle, the
+intermittent lane, the lane registry, the fleet engine (single-device and
+node-sharded) and its streamed driver, the edge-to-host wire format, the
+fleet's serve step and the pod-paired edge/host step."""
 from .edge_host import (  # noqa: F401
-    SeekerNodeState, SensorStepOut, seeker_node_init,
+    SeekerNodeState, SensorStepOut, seeker_node_init, seeker_sensor_step,
     seeker_sensor_step_given_corr, seeker_host_step, seeker_simulate,
+    seeker_simulate_reference,
     IntermittentState, intermittent_node_init, intermittent_fleet_init,
     IntermittentLaneOut, intermittent_lane_step, fleet_serve_step,
     edge_host_serve_step,

@@ -6,13 +6,20 @@ PyTorch counterpart of the bare slot of :mod:`repro.serving.edge_host`.
 written batched over a leading node axis — the JAX fleet's ``vmap`` over
 nodes written out — and take their random draws as tensors:
 
-* the sensor step takes ``u`` (N, T), the D4 Gumbel uniforms;
+* the sensor step takes ``u`` (N, T), the D4 Gumbel uniforms
+  (:func:`seeker_sensor_step` correlates the windows with the signature
+  bank itself; :func:`seeker_sensor_step_given_corr` takes the
+  correlations);
 * the host step takes ``dirs`` (N, C, T, 2), ``radii_u`` (N, C, T, 1) and
   ``latent`` (N, 16), the cluster- and sampling-recovery draws.
 
 Every branch (D2's quantized DNN, D3's cluster coresets, D4's sampling
 coreset and both host recoveries) runs for every node every slot; the
 decision only selects among the results, as in the JAX engine.
+
+:func:`seeker_simulate_reference` is the per-sensor oracle: a Python loop
+over sensors and slots of the sensor and host steps on one node, which
+:func:`seeker_simulate` (the fleet engine) reproduces given the same noise.
 
 The intermittent lane (:func:`intermittent_lane_step`, codes D6/D7/D8) is
 batched the same way: its three inference stages run for every node every
@@ -40,15 +47,18 @@ from ..core.energy import (EnergyCosts, PredictorState, predictor_forecast,
                            supercap_step_direct)
 from ..core.recovery import (GeneratorParams, recover_cluster_window,
                              recover_sampling_window)
+from ..kernels.ops import signature_corr_op
 from ..models.har import (HARConfig, har_act_buffer, har_apply,
                           har_apply_aux, har_apply_quantized_nodes,
-                          har_apply_stage)
+                          har_apply_stage, quantize_params)
 from ..sharding import all_gather_tiles, all_reduce_sum, exchange, node_shard
 
 __all__ = ["SeekerNodeState", "SensorStepOut", "seeker_node_init",
-           "seeker_sensor_step_given_corr", "seeker_host_step",
-           "seeker_simulate", "IntermittentState", "intermittent_node_init",
-           "intermittent_fleet_init", "IntermittentLaneOut",
+           "seeker_sensor_step", "seeker_sensor_step_given_corr",
+           "seeker_host_step", "seeker_simulate",
+           "seeker_simulate_reference", "IntermittentState",
+           "intermittent_node_init", "intermittent_fleet_init",
+           "IntermittentLaneOut",
            "intermittent_lane_step", "fleet_serve_step",
            "edge_host_serve_step", "WirePayload",
            "encode_wire_coresets", "decode_wire_coresets",
@@ -87,6 +97,25 @@ class SensorStepOut(NamedTuple):
     samp_var: torch.Tensor           # (N, C)
     payload_bytes: torch.Tensor      # (N,) float32
     state: SeekerNodeState
+
+
+def seeker_sensor_step(window: torch.Tensor, state: SeekerNodeState,
+                       harvested_uj: torch.Tensor, u: torch.Tensor, *,
+                       signatures: torch.Tensor, qp: dict,
+                       aac_table: AACTable | None, costs: EnergyCosts,
+                       k_max: int = 12, m_samples: int = 20,
+                       quant_bits: int = 16,
+                       corr_threshold: float = 0.95) -> SensorStepOut:
+    """One sensing slot on N nodes (paper Fig. 8, every branch run):
+    ``window`` (N, T, C) is correlated with the (L, T, C) ``signatures``
+    in one :func:`signature_corr_op` call, then
+    :func:`seeker_sensor_step_given_corr` runs the slot.  ``qp`` is the
+    pre-quantized D2 network and ``u`` (N, T) the D4 Gumbel uniforms."""
+    corr = signature_corr_op(window, signatures)
+    return seeker_sensor_step_given_corr(
+        window, state, harvested_uj, corr, u, qp=qp, aac_table=aac_table,
+        costs=costs, k_max=k_max, m_samples=m_samples,
+        quant_bits=quant_bits, corr_threshold=corr_threshold)
 
 
 def seeker_sensor_step_given_corr(
@@ -433,6 +462,88 @@ def seeker_simulate(windows, labels, harvest, *, signatures, qdnn_params,
             "it_early": fleet["it_early"],
         })
     return out
+
+
+def seeker_simulate_reference(windows, labels, harvest, *, signatures,
+                              qdnn_params, host_params, gen_params,
+                              har_cfg: HARConfig,
+                              aac_table: AACTable | None = None,
+                              costs: EnergyCosts | None = None,
+                              n_sensors: int = 3,
+                              generator: torch.Generator | None = None,
+                              noise: dict | None = None,
+                              quant_bits: int = 16, device=None):
+    """The per-sensor simulation: a Python loop over sensors, and within
+    each over the slots of the (S, T, C) stream, of
+    :func:`seeker_sensor_step` and :func:`seeker_host_step` on one node.
+
+    Kept as the semantics oracle of the fleet engine: given the same
+    ``noise`` (S, n_sensors, ...) (:func:`repro_torch.serving.fleet.
+    draw_fleet_noise`'s layout; sensor i takes column i), or a
+    ``generator`` in the same state (the noise is then drawn in the
+    fleet's order), it returns :func:`seeker_simulate`'s traces.
+    ``harvest`` is (S,) µJ per slot, shared by the sensors.  The D2
+    weights are quantized once per call."""
+    from .fleet import (_check_generator, _check_noise, draw_fleet_noise,
+                        fleet_node_init, resolve_device, to_device)
+
+    dev = resolve_device(device)
+    costs = costs or EnergyCosts()
+    windows = to_device(windows, dev, torch.float32)
+    harvest = to_device(harvest, dev, torch.float32)
+    s, t, c = windows.shape
+    if noise is None:
+        noise = draw_fleet_noise(_check_generator(generator, dev), s,
+                                 n_sensors, t, c)
+    else:
+        noise = _check_noise(noise, s, n_sensors, t, c,
+                             lambda v: to_device(v, dev, torch.float32))
+    signatures = to_device(signatures, dev, torch.float32).contiguous()
+    qp = quantize_params(to_device(qdnn_params, dev), quant_bits)
+    host_params = to_device(host_params, dev)
+    gen_params = to_device(gen_params, dev)
+    aac_table = None if aac_table is None else to_device(aac_table, dev)
+
+    traces = []
+    for i in range(n_sensors):
+        state = fleet_node_init(1, device=dev)
+        tr = {"decision": [], "payload": [], "stored": [], "k": [],
+              "logits": []}
+        for si in range(s):
+            nz = {k: v[si, i:i + 1] for k, v in noise.items()}
+            out = seeker_sensor_step(
+                windows[si:si + 1], state, harvest[si:si + 1], nz["u"],
+                signatures=signatures, qp=qp, aac_table=aac_table,
+                costs=costs, quant_bits=quant_bits)
+            logits = seeker_host_step(
+                out, nz["dirs"], nz["radii_u"], nz["latent"],
+                host_params=host_params, gen_params=gen_params, t=t)
+            state = out.state
+            for key, v in (("decision", out.decision),
+                           ("payload", out.payload_bytes),
+                           ("stored", out.state.stored_uj),
+                           ("k", out.coreset_k), ("logits", logits)):
+                tr[key].append(v[0])
+        traces.append({k: torch.stack(v) for k, v in tr.items()})
+    # sensor ensemble (paper: the host ensembles the sensors)
+    ens_logits = sum(tr["logits"] for tr in traces) / n_sensors
+    preds = torch.argmax(ens_logits, dim=-1)
+    labels = to_device(labels, dev)
+    completed = traces[0]["decision"] != DEFER
+    hit = (preds == labels) & completed
+    return {
+        "preds": preds,
+        "labels": labels,
+        "accuracy_completed": hit.sum() / torch.clamp(completed.sum(), min=1),
+        "accuracy_scheduled": hit.to(torch.float32).mean(),
+        "completed_frac": completed.to(torch.float32).mean(),
+        "decisions": traces[0]["decision"],
+        "payload_bytes": traces[0]["payload"],
+        "raw_bytes": float(raw_payload_bytes(t)) * torch.ones((s,),
+                                                             device=dev),
+        "stored_uj": traces[0]["stored"],
+        "k_trace": traces[0]["k"],
+    }
 
 
 # ---------------------------------------------------------------------------
