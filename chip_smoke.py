@@ -97,9 +97,29 @@ Phases (any failure exits non-zero and prints no result):
    deterministic top-m sampler (JAX's indices on a flat window),
    ``memo_decision`` and the single-cloud ``kmeans_coreset`` on 3000 HAR
    windows, each against its CPU run;
-11. the kernel table as one JSON line (each kernel's launches on every
-   path, ``per_sensor_oracle``, ``bearing_step`` and ``codecs`` among
-   them), then the result line.
+11. the LM serving path (bf16 GEMMs reducing in float32): (a)
+   tinyllama-1.1b's full config (22 layers, float32 parameters cast once to
+   bfloat16, random from a seed) through ``repro_torch.launch.serve``'s
+   ``serve`` at batch 8, prompt 512, 64 greedy tokens, with prefill ms,
+   decode ms a step, tokens/s, peak device memory, launches a decode step
+   (``torch.profiler``) and their bounds; the generated steps replayed and
+   held to a teacher-forced float32 forward and a bfloat16 one (RMS
+   difference at most 0.1, largest at most 0.5 of the logits' std) and
+   the greedy tokens to the float32 argmax wherever its margin rules out a
+   flip; (b) the first 2 layers at full width in float32, batch 2, prompt
+   32 and 4 decode steps, the card against the CPU within 1e-3; (c) the 22
+   layers in float32 on a 4096-token prompt, the flash causal walk against
+   the dense attention (which shares no code with it) within 1e-4, end to
+   end and alone, and alone against ``scaled_dot_product_attention`` within
+   1e-4; (d) gemma3-12b at full width, its first 5:1 period (6 layers):
+   prompt 2048 and 32 decode steps through the ring caches against a
+   teacher-forced forward, and the flash banded walk against the dense
+   windowed attention and the library call under a band mask, each within
+   1e-4.  The four hand kernels are not on
+   this path: their launches in (a)'s served call must be 0;
+12. the kernel table as one JSON line (each kernel's launches on every
+   path, ``per_sensor_oracle``, ``bearing_step``, ``codecs`` and
+   ``lm_serve`` among them), then the result line.
 """
 import json
 import subprocess
@@ -132,14 +152,28 @@ ORACLE_SLOTS, ORACLE_SENSORS = 128, 3
 ORACLE_SOURCES = ("wifi", "piezo")
 ORACLE_PROFILE_SLOTS = 8       # the profiled head of the stream
 CODEC_M = 14
+# phase 11: the LM serving path; tinyllama-1.1b's full config at batch 8,
+# prompt 512, 64 new tokens; its 2-layer cut on the card and the CPU; the
+# flash causal walk at 4096 tokens; gemma3-12b's first 5:1 period
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 64
+LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_STEPS = 2, 2, 32, 4
+LM_FLASH_PROMPT, LM_CHUNK = 4096, 512
+GEMMA3_LAYERS, GEMMA3_PROMPT, GEMMA3_NEW = 6, 2048, 32
+# the bfloat16 tolerance in units of the reference logits' standard
+# deviation: RMS and largest difference over the real vocabulary
+# (bfloat16 keeps 8 significant bits; PERF.md §6 gives the CPU estimate
+# at 1-4 layers of tinyllama's width it was set from)
+BF16_RMS, BF16_MAX = 0.1, 0.5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 on the tensor cores
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "chiprun_out"
 
 
-def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def _bound_ms(nbytes: float, flops: float,
+              peak: float = FP32_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1784,11 +1818,13 @@ def phase_sharded(torch, dev) -> dict:
     return out
 
 
-def _hold_at(torch, match, kernel_fn, plain_fn, nbytes, flops, exact):
+def _hold_at(torch, match, kernel_fn, plain_fn, nbytes, flops, exact,
+             library_fn=None):
     """One kernel against its plain version on the card at a shape of this
     slice's paths: bit-equal (``exact``) or within 1e-4, integer outputs
     equal; with its device time (the profiler's kernels whose name holds
-    ``match``), the plain version's and its bound."""
+    ``match``), the plain version's, the library call's (``library_fn``,
+    where one computes the same function) and its bound."""
     got, want = kernel_fn(), plain_fn()
     if isinstance(got, torch.Tensor):
         got, want = (got,), (want,)
@@ -1802,7 +1838,7 @@ def _hold_at(torch, match, kernel_fn, plain_fn, nbytes, flops, exact):
         else:
             assert torch.equal(g_out, w_out), match
     _same_twice(torch, kernel_fn)
-    times, extra = _timings(torch, kernel_fn, match, plain_fn)
+    times, extra = _timings(torch, kernel_fn, match, plain_fn, library_fn)
     bound, by = _bound_ms(nbytes, flops)
     return dict(max_abs_err=err, bound_ms=bound, bound_by=by,
                 call_ms=extra["call_ms"], **times)
@@ -1813,7 +1849,9 @@ def _oracle_shapes(torch, dev, windows, sigs, qp) -> dict:
     call): ``signature_corr`` (1, 60, 3) against the 12-signature bank,
     ``kmeans_coreset`` on the window's 3 channel clouds of (60, 2) and
     D2's three per-node ``fake_quant`` activations, each against its plain
-    version (``fake_quant`` bit for bit)."""
+    version (``fake_quant`` bit for bit), with the library calls of phase
+    3's table: the ``einsum`` and the scale chain with
+    ``fake_quantize_per_tensor_affine``."""
     from repro_torch.core.coreset import points_from_window
     from repro_torch.kernels import ops, ref
     from repro_torch.models.har import _conv1d, _maxpool2
@@ -1822,11 +1860,21 @@ def _oracle_shapes(torch, dev, windows, sigs, qp) -> dict:
     win = windows[:1].contiguous()                           # (1, 60, 3)
     t, c = win.shape[1:]
     l = sigs.shape[0]
+    # the library yardstick of phase 3: one einsum over operands centred
+    # and normalised beforehand
+    wm = win - win.mean(1, keepdim=True)
+    sm = sigs - sigs.mean(1, keepdim=True)
+    a_op = wm / (wm.norm(dim=1, keepdim=True) * c)
+    b_op = sm / sm.norm(dim=1, keepdim=True)
+    torch.testing.assert_close(torch.einsum("btc,ltc->bl", a_op, b_op),
+                               ref.signature_corr_ref(win, sigs), rtol=1e-4,
+                               atol=1e-5)
     rows["signature_corr (1, 60, 3)"] = _hold_at(
         torch, "signature_corr_kernel",
         lambda: ops.signature_corr_op(win, sigs),
         lambda: ref.signature_corr_ref(win, sigs),
-        4 * (t * c + l * t * c + l), 2 * l * t * c + 6 * t * c, exact=False)
+        4 * (t * c + l * t * c + l), 2 * l * t * c + 6 * t * c, exact=False,
+        library_fn=lambda: torch.einsum("btc,ltc->bl", a_op, b_op))
     pts = points_from_window(win[0].T[..., None]).contiguous()  # (3, 60, 2)
     nb, n, d = pts.shape
     k, iters = HOST_K, 4
@@ -1839,16 +1887,28 @@ def _oracle_shapes(torch, dev, windows, sigs, qp) -> dict:
     # D2's activations of one node, as _quantized_forward feeds them
     h1 = _maxpool2(torch.relu(_conv1d(win, qp["conv1_w"], qp["conv1_b"])))
     h2 = _maxpool2(torch.relu(_conv1d(h1, qp["conv2_w"], qp["conv2_b"])))
+    zero_point = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def quant_library(x):
+        # one node's scale chain and fake_quantize_per_tensor_affine (a
+        # yardstick, as phase 3's: it multiplies by 1 / scale)
+        scale = ref.fake_quant_scale(x.reshape(-1, x.shape[-1]), 16, False,
+                                     x.numel() // x.shape[-1])
+        return torch.fake_quantize_per_tensor_affine(
+            x, scale, zero_point, -32767, 32767)
+
     for x in (win, h1.contiguous(), h2.contiguous()):
         rows[f"fake_quant {tuple(x.shape)}"] = _hold_at(
             torch, "fake_quant",
             lambda x=x: ops.fake_quant_op(x, 16, per_sample=True),
             lambda x=x: _fake_quant_plain(ref, x, 16, per_sample=True)[0],
-            2 * 4 * x.numel(), 7 * x.numel(), exact=True)
+            2 * 4 * x.numel(), 7 * x.numel(), exact=True,
+            library_fn=lambda x=x: quant_library(x))
     for name, row in rows.items():
         print(f"  oracle shape {name}: device ms kernel {row['ms']}, plain "
-              f"{row['plain_ms']}, bound {row['bound_ms']} ({row['bound_by']})"
-              f", per call with launch {row['call_ms']}")
+              f"{row['plain_ms']}, library {row['library_ms']}, bound "
+              f"{row['bound_ms']} ({row['bound_by']}), per call with launch "
+              f"{row['call_ms']}")
     return rows
 
 
@@ -2142,6 +2202,380 @@ def phase_paper_path(torch, dev) -> dict:
                 codecs=codecs, seconds=secs, seconds_by_part=seconds)
 
 
+def _lm_close(torch, got, want, vocab: int, what: str) -> dict:
+    """``got`` within the bfloat16 tolerance of ``want`` over the real
+    vocabulary; the RMS and largest difference over ``want``'s standard
+    deviation."""
+    want = want[..., :vocab].float()
+    diff = got[..., :vocab].float() - want
+    std = float(want.std())
+    rms = float(diff.pow(2).mean().sqrt()) / std
+    largest = float(diff.abs().max()) / std
+    print(f"  {what}: RMS difference {rms:.4g}, largest {largest:.4g} of "
+          f"the logits' std {std:.4g} (bounds {BF16_RMS}, {BF16_MAX})")
+    assert rms <= BF16_RMS and largest <= BF16_MAX, (what, rms, largest)
+    return dict(rms_over_std=rms, max_over_std=largest, std=std)
+
+
+def _lm_replay(torch, tt, params, cfg, prompt, tokens):
+    """The prompt's prefill, then the generated tokens decoded teacher-
+    forced on the same shapes as ``generate``: every step's logits (B,
+    new, V) in float32, and the cache widths after the prefill."""
+    new = tokens.shape[1]
+    lg, cache = tt.forward(params, cfg, prompt, return_cache=True,
+                           cache_len=prompt.shape[1] + new)
+    widths = [run["k"].shape[2] for run in cache["runs"]]
+    out = [lg[:, -1].float()]
+    del lg
+    for i in range(new - 1):
+        lg, cache = tt.decode_step(params, cfg, cache, tokens[:, i:i + 1])
+        out.append(lg[:, 0].float())
+    return torch.stack(out, dim=1), widths
+
+
+def _lm_greedy(torch, tokens, dec, ref, vocab: int) -> dict:
+    """The generated tokens against ``ref``'s argmax wherever ``ref``'s
+    top-1/top-2 margin exceeds twice the largest |dec - ref| of that step
+    (where no flip is possible); with the agreement over all steps."""
+    ref = ref[..., :vocab].float()
+    top2 = ref.topk(2, dim=-1).values
+    err = (dec[..., :vocab] - ref).abs().amax(dim=-1)
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * err
+    want = ref.argmax(dim=-1)
+    assert torch.equal(tokens.long()[clear], want[clear])
+    return dict(compared=int(clear.sum()), steps=clear.numel(),
+                agreement_all_steps=float((tokens.long() == want)
+                                          .float().mean()))
+
+
+def _lm_served(torch, dev, cfg, served, prompt, new: int, name: str):
+    """``repro_torch.launch.serve.serve`` once to warm up and once timed,
+    with the peak device memory of the timed call and the four kernels'
+    launches in it."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+
+    serve(served, cfg, prompt, 4, device=dev)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = serve(served, cfg, prompt, new, device=dev)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = out.pop("tokens")
+    assert tokens.shape == (prompt.shape[0], new), tokens.shape
+    assert tokens.dtype == torch.int32
+    assert bool(((tokens >= 0) & (tokens < cfg.vocab)).all())
+    out.update(peak_memory_gb=peak / 1e9, resident_before_gb=resident / 1e9,
+               launches=launches)
+    print(f"  {name}: prefill {out['prefill_ms']:.3f} ms, decode "
+          f"{out['decode_ms_per_step']:.4f} ms/step, {out['tokens_per_s']:.1f}"
+          f" tokens/s; peak device memory {out['peak_memory_gb']:.3f} GB "
+          f"({out['resident_before_gb']:.3f} GB resident before); hand-"
+          f"kernel launches {launches}")
+    return out, tokens
+
+
+def _attended(s: int, window: int | None) -> int:
+    """Query-key pairs a causal (windowed) attention over ``s`` positions
+    must score."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def _lm_bounds(cfg, served, batch: int, prompt: int, cache_len: int) -> dict:
+    """The least time of a prefill and of a decode step: weights read once
+    (the embedding table only at the tokens' rows), the KV cache read once
+    a step at its full length, the matmuls' and the (windowed) causal
+    attention's operations at the bf16 tensor-core peak."""
+    weights = sum(v.numel() * v.element_size()
+                  for k, v in served.items() if k not in ("embed", "runs"))
+    weights += sum(v.numel() * v.element_size()
+                   for run in served["runs"] for v in run.values())
+    matmul = cfg.param_count() - cfg.vocab * cfg.d_model
+    if cfg.tie_embeddings:
+        weights += served["embed"].numel() * served["embed"].element_size()
+        matmul += cfg.vocab * cfg.d_model
+    hd = cfg.n_heads * cfg.head_dim
+    windows = [cfg.window if kind == "local" else None
+               for kind in cfg.block_pattern]
+    kv = sum(2 * batch * min(w or cache_len, cache_len) * cfg.n_kv
+             * cfg.head_dim * 2 for w in windows)
+    attn_prefill = sum(4 * batch * hd * _attended(prompt, w) for w in windows)
+    attn_decode = sum(4 * batch * hd * min(w or cache_len, cache_len)
+                      for w in windows)
+    prefill = _bound_ms(weights + kv * prompt / cache_len,
+                        2 * matmul * batch * prompt + attn_prefill,
+                        BF16_FLOPS)
+    decode = _bound_ms(weights + kv, 2 * matmul * batch + attn_decode,
+                       BF16_FLOPS)
+    return dict(prefill_bound_ms=prefill[0], prefill_bound_by=prefill[1],
+                decode_bound_ms=decode[0], decode_bound_by=decode[1],
+                weight_bytes=weights, kv_cache_bytes=kv)
+
+
+def _lm_decode_profile(torch, served, cfg, prompt, tok, new: int,
+                       name: str) -> dict:
+    """Launches, device busy time and idle share of a decode step: four
+    steps after a prefill of ``prompt`` into the cache that serving
+    ``new`` tokens builds, timed on the host clock and then profiled."""
+    from repro_torch.models import transformer as tt
+
+    _, cache = tt.forward(served, cfg, prompt, return_cache=True,
+                          cache_len=prompt.shape[1] + new)
+    state = dict(cache=cache)
+
+    def four_steps():
+        for _ in range(4):
+            _, state["cache"] = tt.decode_step(served, cfg, state["cache"],
+                                               tok)
+
+    t0 = time.perf_counter()
+    four_steps()
+    torch.cuda.synchronize()
+    return _profile(torch, four_steps, 4, time.perf_counter() - t0, name)
+
+
+def _lm_tinyllama(torch, dev, cfg, params, served) -> dict:
+    """Phase 11 (a): tinyllama-1.1b's full config served through the
+    launcher's ``serve``, launches per decode step from the profiler, and
+    the fidelity of the generated steps against teacher-forced forwards."""
+    import dataclasses
+    from repro_torch.models import transformer as tt
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g,
+                           device=dev)
+    out, tokens = _lm_served(torch, dev, cfg, served, prompt, LM_NEW,
+                             "tinyllama-1.1b")
+    out.update(_lm_bounds(cfg, served, LM_BATCH, LM_PROMPT,
+                          LM_PROMPT + LM_NEW))
+    print(f"  bounds: prefill {out['prefill_bound_ms']:.3f} ms "
+          f"({out['prefill_bound_by']}), decode step "
+          f"{out['decode_bound_ms']:.4f} ms ({out['decode_bound_by']}); "
+          f"{out['weight_bytes'] / 1e9:.3f} GB of weights read a step, KV "
+          f"cache {out['kv_cache_bytes'] / 1e9:.3f} GB at full length")
+
+    out["profile"] = _lm_decode_profile(torch, served, cfg, prompt,
+                                        tokens[:, :1], LM_NEW,
+                                        "lm_decode_step")
+    # fidelity: the generated steps replayed, against teacher-forced
+    # forwards over the prompt and all generated tokens but the last
+    dec, _ = _lm_replay(torch, tt, served, cfg, prompt, tokens)
+    assert torch.equal(dec.argmax(dim=-1).int(), tokens), "replay differs"
+    full = torch.cat([prompt, tokens], dim=1)[:, :-1]
+    fwd = tt.forward(served, cfg, full)[:, LM_PROMPT - 1:].float()
+    out["decode_vs_forward"] = _lm_close(torch, dec, fwd, cfg.vocab,
+                                         "decode_step against forward, bf16")
+    del fwd
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    fwd32 = tt.forward(params, cfg32, full)[:, LM_PROMPT - 1:].clone()
+    out["bf16_vs_f32"] = _lm_close(torch, dec, fwd32, cfg.vocab,
+                                   "generated bf16 steps against a float32 "
+                                   "teacher-forced forward")
+    out["greedy"] = _lm_greedy(torch, tokens, dec, fwd32, cfg.vocab)
+    print(f"  greedy tokens equal the float32 argmax on all "
+          f"{out['greedy']['compared']} of {out['greedy']['steps']} steps "
+          f"whose margin exceeds twice their largest difference; on "
+          f"{out['greedy']['agreement_all_steps']:.4f} of all steps")
+    return out
+
+
+def _lm_card_vs_cpu(torch, dev, cfg, params) -> dict:
+    """Phase 11 (b): the first two layers at full width in float32, batch
+    2, a 32-token prefill and 4 decode steps on the card and on the CPU
+    with the same weights: logits within 1e-3."""
+    import dataclasses
+    from repro_torch.models import transformer as tt
+
+    cfg2 = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS, block_pattern=(),
+                               dtype=torch.float32)
+    p2 = dict(params, runs=[{k: v[:LM_CPU_LAYERS]
+                             for k, v in params["runs"][0].items()}])
+    g = torch.Generator(device=dev).manual_seed(20)
+    toks = torch.randint(0, cfg.vocab, (LM_CPU_BATCH,
+                                        LM_CPU_PROMPT + LM_CPU_STEPS),
+                         generator=g, device=dev)
+
+    def run(p, toks):
+        lg, cache = tt.forward(p, cfg2, toks[:, :LM_CPU_PROMPT],
+                               return_cache=True,
+                               cache_len=toks.shape[1])
+        outs = [lg]
+        for i in range(LM_CPU_PROMPT, toks.shape[1]):
+            lg, cache = tt.decode_step(p, cfg2, cache, toks[:, i:i + 1])
+            outs.append(lg)
+        return torch.cat(outs, dim=1)
+
+    card = run(p2, toks).cpu()
+    t0 = time.perf_counter()
+    cpu = run(tt.compute_params(p2, cfg2, "cpu"), toks.cpu())
+    cpu_secs = time.perf_counter() - t0
+    err = float((card - cpu).abs().max())
+    print(f"  {LM_CPU_LAYERS} layers at full width, float32, batch "
+          f"{LM_CPU_BATCH}: prefill of {LM_CPU_PROMPT} and {LM_CPU_STEPS} "
+          f"decode steps, the card against the CPU ({cpu_secs:.1f} s): max "
+          f"|difference| {err:.3g} (bound 1e-3)")
+    assert err <= 1e-3, err
+    return dict(max_abs_err=err, cpu_seconds=cpu_secs)
+
+
+def _lm_attention(torch, dev, walk, plain, library, shape_q, shape_kv,
+                  flops: float, what: str) -> dict:
+    """One flash walk on random float32 inputs against the materialized-
+    score attention, which shares no code with it, and against the library
+    attention (each within 1e-4), with the device time of all three and
+    the walk's bound."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    q = torch.randn(shape_q, generator=g, device=dev)
+    k, v = (torch.randn(shape_kv, generator=g, device=dev) for _ in range(2))
+    got = walk(q, k, v)
+    err = float((plain(q, k, v) - got).abs().max())
+    lib_err = float((library(q, k, v) - got).abs().max())
+    print(f"  {what}: flash against dense max |difference| {err:.3g}, "
+          f"against the library call {lib_err:.3g} (bound 1e-4 each)")
+    assert err <= 1e-4 and lib_err <= 1e-4, (what, err, lib_err)
+    bound, by = _bound_ms(4 * (2 * q.numel() + 2 * k.numel()), flops)
+    row = dict(max_abs_err=err, library_max_abs_err=lib_err,
+               ms=_time_ms(torch, lambda: walk(q, k, v), reps=5, warmup=1),
+               plain_ms=_time_ms(torch, lambda: plain(q, k, v), reps=5,
+                                 warmup=1),
+               library_ms=_time_ms(torch, lambda: library(q, k, v), reps=20),
+               bound_ms=bound, bound_by=by)
+    print(f"    ms (CUDA events): flash {row['ms']:.3f}, dense "
+          f"{row['plain_ms']:.3f}, library {row['library_ms']:.3f}; bound "
+          f"{bound:.3f} ({by}, float32)")
+    return row
+
+
+def _sdpa(torch, q, k, v, mask=None):
+    """``scaled_dot_product_attention`` on the walks' (B,S,G,R,D) layout:
+    causal, or under a boolean ``mask``; the library yardstick."""
+    import torch.nn.functional as F
+    b, s, g, r, d = q.shape
+    out = F.scaled_dot_product_attention(
+        q.reshape(b, s, g * r, d).transpose(1, 2), k.transpose(1, 2),
+        v.transpose(1, 2), attn_mask=mask, is_causal=mask is None,
+        enable_gqa=True)
+    return out.transpose(1, 2).reshape(b, s, g, r, d)
+
+
+def _lm_flash_causal(torch, dev, cfg, params) -> dict:
+    """Phase 11 (c): tinyllama's 22 layers in float32 on a 4096-token
+    prompt (past ``dense_attn_max_seq``), the flash causal walk against
+    the dense attention (its limit raised to the prompt), end to end and
+    alone."""
+    import dataclasses
+    from repro_torch.models import layers, transformer as tt
+    from repro_torch.models.flash import flash_causal_attention
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(21)
+    toks = torch.randint(0, cfg.vocab, (1, LM_FLASH_PROMPT), generator=g,
+                         device=dev)
+    flash = tt.forward(params, cfg32, toks)
+    dense = tt.forward(params, dataclasses.replace(
+        cfg32, dense_attn_max_seq=LM_FLASH_PROMPT), toks)
+    err = float((flash - dense).abs().max())
+    del flash, dense
+    print(f"  tinyllama-1.1b, float32, prompt {LM_FLASH_PROMPT}: forward "
+          f"through flash_causal_attention against dense_attention, "
+          f"max |difference| {err:.3g} (bound 1e-4)")
+    assert err <= 1e-4, err
+    s, c, h, dh = LM_FLASH_PROMPT, LM_CHUNK, cfg.n_heads, cfg.head_dim
+    row = _lm_attention(
+        torch, dev, lambda q, k, v: flash_causal_attention(q, k, v, c),
+        lambda q, k, v: layers.dense_attention(q, k, v),
+        lambda q, k, v: _sdpa(torch, q, k, v),
+        (1, s, cfg.n_kv, h // cfg.n_kv, dh), (1, s, cfg.n_kv, dh),
+        4 * h * dh * _attended(s, None), f"flash_causal_attention (1, {s}, "
+        f"{cfg.n_kv}, {h // cfg.n_kv}, {dh}), chunk {c}")
+    return dict(forward_max_abs_err=err, attention=row)
+
+
+def _lm_gemma3(torch, dev) -> dict:
+    """Phase 11 (d): gemma3-12b at full width cut to its first 5:1 period
+    (6 layers): a 2048-token prompt and 32 decode steps through the ring
+    caches, decode against a teacher-forced forward; the flash banded walk
+    against the dense windowed attention in float32."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, transformer as tt
+    from repro_torch.models.flash import flash_banded_attention
+
+    base = get_config("gemma3-12b")
+    cfg = dataclasses.replace(base, n_layers=GEMMA3_LAYERS,
+                              block_pattern=base.block_pattern[:GEMMA3_LAYERS])
+    g = torch.Generator(device=dev).manual_seed(23)
+    served = tt.compute_params(tt.init_params(g, cfg), cfg)
+    torch.cuda.empty_cache()
+    prompt = torch.randint(0, cfg.vocab, (1, GEMMA3_PROMPT), generator=g,
+                           device=dev)
+    out, tokens = _lm_served(torch, dev, cfg, served, prompt, GEMMA3_NEW,
+                             f"gemma3-12b, {GEMMA3_LAYERS} layers")
+    out.update(_lm_bounds(cfg, served, 1, GEMMA3_PROMPT,
+                          GEMMA3_PROMPT + GEMMA3_NEW))
+    out["profile"] = _lm_decode_profile(torch, served, cfg, prompt,
+                                        tokens[:, :1], GEMMA3_NEW,
+                                        "gemma3_decode_step")
+    dec, widths = _lm_replay(torch, tt, served, cfg, prompt, tokens)
+    w = cfg.window
+    assert widths == [w, GEMMA3_PROMPT + GEMMA3_NEW], widths
+    assert torch.equal(dec.argmax(dim=-1).int(), tokens), "replay differs"
+    full = torch.cat([prompt, tokens], dim=1)[:, :-1]
+    fwd = tt.forward(served, cfg, full)[:, GEMMA3_PROMPT - 1:].float()
+    out["decode_vs_forward"] = _lm_close(
+        torch, dec, fwd, cfg.vocab,
+        "gemma3 decode_step through the ring caches against forward, bf16")
+    out["cache_widths"] = widths
+    del served, fwd, dec
+    torch.cuda.empty_cache()
+    s, c, h, dh = GEMMA3_PROMPT, LM_CHUNK, cfg.n_heads, cfg.head_dim
+    idx = torch.arange(s, device=dev)
+    band = (idx[:, None] >= idx[None, :]) & (idx[:, None] - idx[None, :] < w)
+    out["attention"] = _lm_attention(
+        torch, dev, lambda q, k, v: flash_banded_attention(q, k, v, w, c),
+        lambda q, k, v: layers.dense_attention(q, k, v, window=w),
+        lambda q, k, v: _sdpa(torch, q, k, v, band),
+        (1, s, cfg.n_kv, h // cfg.n_kv, dh), (1, s, cfg.n_kv, dh),
+        4 * h * dh * _attended(s, w), f"flash_banded_attention (1, {s}, "
+        f"{cfg.n_kv}, {h // cfg.n_kv}, {dh}), window {w}, chunk {c}")
+    return out
+
+
+def phase_lm_serve(torch, dev) -> dict:
+    """Phase 11: the LM serving path (module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tt
+
+    t0 = time.perf_counter()
+    # the bf16 GEMMs reduce in float32, as XLA's do
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_bf16_reduced_precision_reduction = False
+    print("cuda.matmul.allow_bf16_reduced_precision_reduction="
+          f"{matmul.allow_bf16_reduced_precision_reduction}")
+    cfg = get_config("tinyllama-1.1b")
+    g = torch.Generator(device=dev).manual_seed(18)
+    with torch.no_grad():
+        params = tt.init_params(g, cfg)                    # float32
+        served = tt.compute_params(params, cfg)            # bf16 weights
+        print(f"  tinyllama-1.1b: {cfg.param_count() / 1e9:.3f} B "
+              f"parameters, {cfg.n_layers} layers")
+        tiny = _lm_tinyllama(torch, dev, cfg, params, served)
+        del served
+        card_cpu = _lm_card_vs_cpu(torch, dev, cfg, params)
+        flash = _lm_flash_causal(torch, dev, cfg, params)
+        del params
+        torch.cuda.empty_cache()
+        gemma3 = _lm_gemma3(torch, dev)
+    secs = time.perf_counter() - t0
+    print(f"phase 11: {secs:.1f} s")
+    return dict(tinyllama=tiny, card_vs_cpu=card_cpu, flash_causal=flash,
+                gemma3=gemma3, seconds=secs)
+
+
 def _first_row(x):
     """Row 0 of a stacked state (tensors, named tuples, dicts)."""
     if isinstance(x, tuple) and hasattr(x, "_fields"):
@@ -2166,6 +2600,8 @@ def main() -> int:
     host_serve = phase_host_serve(torch, dev, feed)
     sharded = phase_sharded(torch, dev)
     paper = phase_paper_path(torch, dev)
+    lm = phase_lm_serve(torch, dev)
+    assert not any(lm["tinyllama"]["launches"].values()), lm["tinyllama"]
     # each kernel's launches on every path, each counted from zero;
     # ``launches`` is its main path's: the fleet's three, and the sampler's
     # entry point
@@ -2183,7 +2619,8 @@ def main() -> int:
                    sharded["gloo_ranks"]["launches_per_rank"][0],
                "per_sensor_oracle": paper["oracle"][0]["launches"]["oracle"],
                "bearing_step": paper["bearing_step"]["launches"],
-               "codecs": paper["codecs"]["launches"]}
+               "codecs": paper["codecs"]["launches"],
+               "lm_serve": lm["tinyllama"]["launches"]}
     launches = dict(fleet_launches,
                     importance_select=importance["importance_select"])
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -2197,7 +2634,7 @@ def main() -> int:
         dict(card=smi, kernels=kernels, timing=extra, ptxas=ptxas,
              fleet=fleet, scarce_fleet=scarce, task_fleet=task_fleet,
              streamed=streamed, host_serve=host_serve, sharded=sharded,
-             paper_path=paper),
+             paper_path=paper, lm_serve=lm),
         indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -25,7 +25,7 @@ __all__ = ["tensor", "har_params", "aux_params", "generator_params",
            "discriminator_params", "aac_table", "node_state",
            "intermittent_state", "task_host_params", "telemetry_state",
            "wire_payload", "wire_sample_payload", "host_payload",
-           "host_server_state", "to_numpy"]
+           "host_server_state", "lm_params", "to_numpy"]
 
 
 def tensor(x, dtype: torch.dtype | None = None, device=None) -> torch.Tensor:
@@ -147,13 +147,28 @@ def host_server_state(state, device=None) -> HostServerState:
                  else telemetry_state(state.metrics, device)))
 
 
+def lm_params(tree, device=None) -> dict:
+    """``repro.models.init_params``'s LM parameter tree (``embed``,
+    ``final_norm``, ``unembed``, ``runs`` of stacked leaves) -> the port's
+    tree of the same names and layouts, each leaf's dtype kept."""
+    def leaf(x):
+        return torch.as_tensor(np.array(x), device=device)
+
+    out = {k: leaf(v) for k, v in tree.items() if k != "runs"}
+    out["runs"] = [{k: leaf(v) for k, v in run.items()}
+                   for run in tree["runs"]]
+    return out
+
+
 def to_numpy(tree):
-    """The port's NamedTuples, dicts and tensors as numpy arrays, in the
-    same structure (``None`` stays ``None``), for comparing with JAX."""
+    """The port's NamedTuples, dicts, lists and tensors as numpy arrays, in
+    the same structure (``None`` stays ``None``), for comparing with JAX."""
     if tree is None:
         return None
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(to_numpy(x) for x in tree))
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_numpy(x) for x in tree]
     return tree.detach().cpu().numpy()

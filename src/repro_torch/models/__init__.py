@@ -1,5 +1,11 @@
-"""The paper's HAR edge classifier."""
+"""The paper's HAR edge classifier, and the language model's attention
+decoders (config, layers, flash walks, transformer)."""
+from .config import ModelConfig, MoEConfig, pattern_runs  # noqa: F401
 from .har import (  # noqa: F401
     HARConfig, har_init, har_apply, har_apply_quantized,
     har_apply_quantized_nodes, quantize_params,
+)
+from .transformer import (  # noqa: F401
+    compute_params, decode_step, forward, init_cache, init_params,
+    model_param_shapes,
 )

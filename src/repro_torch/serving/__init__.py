@@ -1,7 +1,9 @@
 """The Seeker slot for a batch of nodes, the per-sensor oracle, the
 intermittent lane, the lane registry, the fleet engine (single-device and
 node-sharded) and its streamed driver, the edge-to-host wire format, the
-fleet's serve step and the pod-paired edge/host step."""
+fleet's serve step and the pod-paired edge/host step; and the language
+model's serving engine."""
+from .engine import generate, greedy_sample, temperature_sample  # noqa: F401
 from .edge_host import (  # noqa: F401
     SeekerNodeState, SensorStepOut, seeker_node_init, seeker_sensor_step,
     seeker_sensor_step_given_corr, seeker_host_step, seeker_simulate,
