@@ -117,10 +117,36 @@ Phases (any failure exits non-zero and prints no result):
    windowed attention and the library call under a band mask, each within
    1e-4.  The four hand kernels are not on
    this path: their launches in (a)'s served call must be 0;
-12. the kernel table as one JSON line (each kernel's launches on every
-   path, ``per_sensor_oracle``, ``bearing_step``, ``codecs`` and
-   ``lm_serve`` among them), then the result line.
+12. the MoE, RG-LRU and SSD serving paths, each served through ``serve``
+   at batch 8, prompt 512, greedy, with prefill ms, decode ms a step,
+   tokens/s, peak device memory, launches, device busy and idle share of
+   a decode step and their bounds (an MoE decode step's bound reads only
+   the experts it routes to), the generated steps replayed (argmax equal
+   to the tokens), and 0 hand-kernel launches: (a) deepseek-moe-16b's
+   full config (28 layers, 64 experts top-6 and 2 shared) with bf16
+   parameters from a seed, 32 new tokens, the dropped (token, k) share of
+   its first MoE layer at the prefill (capacity 60) and a decode step
+   (capacity 1); (b) its first 4 layers' bf16 steps against a float32
+   decode replay of the same tokens (RMS at most 0.1 of the std, the
+   largest difference and the greedy agreement reported), and its first
+   2 layers in float32, batch 2, prompt 32 and 4 steps, on the card
+   against the CPU within 1e-3 with equal drops; (c) grok-1-314b at full
+   width cut to 2 layers, bf16 from a seed, as (a), and its first layer
+   as (b); (d) recurrentgemma-2b's full config and (e) mamba2-130m's,
+   float32 parameters cast once to bf16, 64 new tokens: decode against a
+   teacher-forced bf16 forward and the bf16 steps against a float32 one
+   within ``REC_RMS`` and ``REC_MAX``, greedy tokens equal to the float32 argmax where
+   the margin rules out a flip, and the card against the CPU in float32
+   within 1e-3 (recurrentgemma's first 3 layers at prompt 32, mamba2
+   whole at prompt 256);
+13. the kernel table as one JSON line (each kernel's launches on every
+   path, ``per_sensor_oracle``, ``bearing_step``, ``codecs``, ``lm_serve``
+   and the ``lm_mixers_*`` cells among them), then the result line.
+
+``python3 chip_smoke.py --bf16-drift [ARCH ...]`` runs, on the CPU, the
+estimate phase 12's bfloat16 bounds were set from (``bf16_drift``).
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -164,6 +190,18 @@ GEMMA3_LAYERS, GEMMA3_PROMPT, GEMMA3_NEW = 6, 2048, 32
 # (bfloat16 keeps 8 significant bits; PERF.md §6 gives the CPU estimate
 # at 1-4 layers of tinyllama's width it was set from)
 BF16_RMS, BF16_MAX = 0.1, 0.5
+# phase 12: the MoE, RG-LRU and SSD serving paths at batch 8, prompt 512;
+# deepseek-moe-16b's first 4 layers in float32 and its first 2 on the CPU;
+# grok-1-314b cut to 2 layers (631 GB in bf16 at its 64); the recurrent
+# configs' card-against-CPU cuts (recurrentgemma's R, R, L; mamba2 whole)
+MIX_BATCH, MIX_PROMPT, MOE_NEW, REC_NEW = 8, 512, 32, 64
+DEEPSEEK_F32_LAYERS, DEEPSEEK_CPU_LAYERS, GROK_LAYERS = 4, 2, 2
+RG_CPU_LAYERS, MAMBA_CPU_PROMPT = 3, 256
+# the recurrent configs' bfloat16 bounds (RMS, largest) over the logits'
+# std: about twice the CPU estimate of ``chip_smoke.py --bf16-drift``
+# extrapolated to full depth (recurrentgemma 0.075 and 0.48; mamba2,
+# measured whole, 0.056 and 0.36; PERF.md §6)
+REC_RMS, REC_MAX = 0.15, 1.0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 on the tensor cores
@@ -2202,29 +2240,41 @@ def phase_paper_path(torch, dev) -> dict:
                 codecs=codecs, seconds=secs, seconds_by_part=seconds)
 
 
-def _lm_close(torch, got, want, vocab: int, what: str) -> dict:
-    """``got`` within the bfloat16 tolerance of ``want`` over the real
-    vocabulary; the RMS and largest difference over ``want``'s standard
-    deviation."""
+def _lm_diff(torch, got, want, vocab: int) -> dict:
+    """The RMS and largest difference of ``got`` from ``want`` over the
+    real vocabulary, each over ``want``'s standard deviation."""
     want = want[..., :vocab].float()
     diff = got[..., :vocab].float() - want
     std = float(want.std())
-    rms = float(diff.pow(2).mean().sqrt()) / std
-    largest = float(diff.abs().max()) / std
+    return dict(rms_over_std=float(diff.pow(2).mean().sqrt()) / std,
+                max_over_std=float(diff.abs().max()) / std, std=std)
+
+
+def _lm_close(torch, got, want, vocab: int, what: str,
+              rms_bound: float = BF16_RMS,
+              max_bound: float | None = BF16_MAX) -> dict:
+    """``got`` within the bfloat16 tolerance of ``want`` over the real
+    vocabulary (the largest difference reported only, where ``max_bound``
+    is None)."""
+    res = _lm_diff(torch, got, want, vocab)
+    rms, largest = res["rms_over_std"], res["max_over_std"]
     print(f"  {what}: RMS difference {rms:.4g}, largest {largest:.4g} of "
-          f"the logits' std {std:.4g} (bounds {BF16_RMS}, {BF16_MAX})")
-    assert rms <= BF16_RMS and largest <= BF16_MAX, (what, rms, largest)
-    return dict(rms_over_std=rms, max_over_std=largest, std=std)
+          f"the logits' std {res['std']:.4g} (bounds {rms_bound}, "
+          f"{'reported only' if max_bound is None else max_bound})")
+    assert rms <= rms_bound, (what, rms)
+    assert max_bound is None or largest <= max_bound, (what, largest)
+    return res
 
 
 def _lm_replay(torch, tt, params, cfg, prompt, tokens):
     """The prompt's prefill, then the generated tokens decoded teacher-
-    forced on the same shapes as ``generate``: every step's logits (B,
-    new, V) in float32, and the cache widths after the prefill."""
+    forced on the same shapes as ``generate`` (so an MoE config routes the
+    same groups): every step's logits (B, new, V) in float32, and the
+    attention runs' cache widths after the prefill."""
     new = tokens.shape[1]
     lg, cache = tt.forward(params, cfg, prompt, return_cache=True,
                            cache_len=prompt.shape[1] + new)
-    widths = [run["k"].shape[2] for run in cache["runs"]]
+    widths = [run["k"].shape[2] for run in cache["runs"] if "k" in run]
     out = [lg[:, -1].float()]
     del lg
     for i in range(new - 1):
@@ -2285,35 +2335,68 @@ def _attended(s: int, window: int | None) -> int:
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def _lm_bounds(cfg, served, batch: int, prompt: int, cache_len: int) -> dict:
+def _lm_bounds(cfg, served, batch: int, prompt: int, cache_len: int,
+               routed: list | None = None) -> dict:
     """The least time of a prefill and of a decode step: weights read once
-    (the embedding table only at the tokens' rows), the KV cache read once
-    a step at its full length, the matmuls' and the (windowed) causal
-    attention's operations at the bf16 tensor-core peak."""
-    weights = sum(v.numel() * v.element_size()
-                  for k, v in served.items() if k not in ("embed", "runs"))
-    weights += sum(v.numel() * v.element_size()
-                   for run in served["runs"] for v in run.values())
-    matmul = cfg.param_count() - cfg.vocab * cfg.d_model
+    (the embedding table only at the tokens' rows; an MoE decode step only
+    the ``routed`` experts each of its layers routes to, the prefill all of
+    them), the KV cache read once a step at its full length, a recurrent
+    run's state read and written once a step (written once by the
+    prefill); the matmuls' operations (``active_param_count``) and the
+    (windowed) causal attention's at the bf16 tensor-core peak, the SSD
+    chunk scan's float32 einsums at the float32 peak."""
+    import math
+    from repro_torch.models.rglru import rglru_state_shapes
+    from repro_torch.models.ssd import ssd_state_shapes
+
+    def size(t):
+        return t.numel() * t.element_size()
+
+    weights = sum(size(v) for k, v in served.items()
+                  if k not in ("embed", "runs"))
+    weights += sum(size(v) for run in served["runs"] for v in run.values())
+    matmul = cfg.active_param_count() - cfg.vocab * cfg.d_model
     if cfg.tie_embeddings:
-        weights += served["embed"].numel() * served["embed"].element_size()
+        weights += size(served["embed"])
         matmul += cfg.vocab * cfg.d_model
+    unread = 0
+    if routed is not None:
+        m, item = cfg.moe, served["embed"].element_size()
+        unread = sum(m.n_experts - r for r in routed) * (
+            3 * cfg.d_model * m.d_expert * item)
     hd = cfg.n_heads * cfg.head_dim
     windows = [cfg.window if kind == "local" else None
-               for kind in cfg.block_pattern]
+               for kind in cfg.block_pattern if kind in ("attn", "local")]
     kv = sum(2 * batch * min(w or cache_len, cache_len) * cfg.n_kv
              * cfg.head_dim * 2 for w in windows)
+    state = f32_prefill = f32_decode = 0
+    for kind in cfg.block_pattern:
+        if kind in ("rglru", "ssd"):
+            shapes = (rglru_state_shapes(cfg, batch) if kind == "rglru"
+                      else ssd_state_shapes(cfg, batch))
+            state += sum(math.prod(v) for v in shapes.values()) * (
+                cfg.dtype.itemsize)
+        if kind == "ssd":
+            # intra-chunk C.B and its product with x, the chunk states and
+            # their read-out; a decode step's state update and read-out
+            hp, n = cfg.ssm_heads * cfg.ssm_headdim, cfg.ssm_state
+            f32_prefill += 2 * batch * prompt * (
+                min(128, prompt) * (cfg.ssm_groups * n + hp) + 2 * hp * n)
+            f32_decode += 2 * batch * 2 * hp * n
     attn_prefill = sum(4 * batch * hd * _attended(prompt, w) for w in windows)
     attn_decode = sum(4 * batch * hd * min(w or cache_len, cache_len)
                       for w in windows)
-    prefill = _bound_ms(weights + kv * prompt / cache_len,
-                        2 * matmul * batch * prompt + attn_prefill,
-                        BF16_FLOPS)
-    decode = _bound_ms(weights + kv, 2 * matmul * batch + attn_decode,
-                       BF16_FLOPS)
+    fp32_in_bf16 = BF16_FLOPS / FP32_FLOPS   # a float32 op's bf16 ops
+    prefill = _bound_ms(weights + kv * prompt / cache_len + state,
+                        2 * matmul * batch * prompt + attn_prefill
+                        + f32_prefill * fp32_in_bf16, BF16_FLOPS)
+    decode = _bound_ms(weights - unread + kv + 2 * state,
+                       2 * matmul * batch + attn_decode
+                       + f32_decode * fp32_in_bf16, BF16_FLOPS)
     return dict(prefill_bound_ms=prefill[0], prefill_bound_by=prefill[1],
                 decode_bound_ms=decode[0], decode_bound_by=decode[1],
-                weight_bytes=weights, kv_cache_bytes=kv)
+                weight_bytes=weights, decode_weight_bytes=weights - unread,
+                kv_cache_bytes=kv, state_bytes=state)
 
 
 def _lm_decode_profile(torch, served, cfg, prompt, tok, new: int,
@@ -2383,43 +2466,86 @@ def _lm_tinyllama(torch, dev, cfg, params, served) -> dict:
     return out
 
 
-def _lm_card_vs_cpu(torch, dev, cfg, params) -> dict:
-    """Phase 11 (b): the first two layers at full width in float32, batch
-    2, a 32-token prefill and 4 decode steps on the card and on the CPU
-    with the same weights: logits within 1e-3."""
+def _cut_cfg(cfg, n: int):
+    """``cfg`` cut to its first ``n`` layers."""
+    import dataclasses
+    return dataclasses.replace(
+        cfg, n_layers=n, block_pattern=cfg.block_pattern[:n],
+        moe_layers=tuple(i for i in cfg.moe_layers if i < n))
+
+
+def _lm_cut(cfg, params, n: int):
+    """``cfg`` and ``params`` cut to their first ``n`` layers (the runs'
+    leaves as views of the same tensors)."""
+    from repro_torch.models.config import pattern_runs
+    runs = [{k: v[:n - start] for k, v in run.items()}
+            for run, (_, _, start, _) in zip(params["runs"],
+                                             pattern_runs(cfg))
+            if start < n]
+    return _cut_cfg(cfg, n), dict(params, runs=runs)
+
+
+@contextlib.contextmanager
+def _routes():
+    """Every ``moe_route`` result of the calls inside, in call order (the
+    first is the first MoE layer's)."""
+    from repro_torch.models import moe
+    seen, route = [], moe.moe_route
+
+    def record(*args, **kw):
+        seen.append(route(*args, **kw))
+        return seen[-1]
+
+    moe.moe_route = record
+    try:
+        yield seen
+    finally:
+        moe.moe_route = route
+
+
+def _lm_card_vs_cpu(torch, dev, cfg, params, layers: int = LM_CPU_LAYERS,
+                    batch: int = LM_CPU_BATCH, prompt: int = LM_CPU_PROMPT,
+                    steps: int = LM_CPU_STEPS) -> dict:
+    """Phase 11 (b), 12 (b, d, e): the first ``layers`` layers at full
+    width in float32, a ``prompt``-token prefill and ``steps`` decode
+    steps on the card and on the CPU with the same weights: logits within
+    1e-3, and each MoE layer's dropped assignments equal."""
     import dataclasses
     from repro_torch.models import transformer as tt
 
-    cfg2 = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS, block_pattern=(),
-                               dtype=torch.float32)
-    p2 = dict(params, runs=[{k: v[:LM_CPU_LAYERS]
-                             for k, v in params["runs"][0].items()}])
+    cut, p = _lm_cut(cfg, params, layers)
+    cut = dataclasses.replace(cut, dtype=torch.float32)
     g = torch.Generator(device=dev).manual_seed(20)
-    toks = torch.randint(0, cfg.vocab, (LM_CPU_BATCH,
-                                        LM_CPU_PROMPT + LM_CPU_STEPS),
-                         generator=g, device=dev)
+    toks = torch.randint(0, cfg.vocab, (batch, prompt + steps), generator=g,
+                         device=dev)
 
     def run(p, toks):
-        lg, cache = tt.forward(p, cfg2, toks[:, :LM_CPU_PROMPT],
-                               return_cache=True,
-                               cache_len=toks.shape[1])
-        outs = [lg]
-        for i in range(LM_CPU_PROMPT, toks.shape[1]):
-            lg, cache = tt.decode_step(p, cfg2, cache, toks[:, i:i + 1])
-            outs.append(lg)
-        return torch.cat(outs, dim=1)
+        with _routes() as seen:
+            lg, cache = tt.forward(p, cut, toks[:, :prompt],
+                                   return_cache=True,
+                                   cache_len=toks.shape[1])
+            outs = [lg]
+            for i in range(prompt, toks.shape[1]):
+                lg, cache = tt.decode_step(p, cut, cache, toks[:, i:i + 1])
+                outs.append(lg)
+        return (torch.cat(outs, dim=1),
+                [int((~r.keep).sum()) for r in seen])
 
-    card = run(p2, toks).cpu()
+    card, card_drops = run(tt.compute_params(p, cut), toks)
+    card = card.cpu()
     t0 = time.perf_counter()
-    cpu = run(tt.compute_params(p2, cfg2, "cpu"), toks.cpu())
+    cpu, cpu_drops = run(tt.compute_params(p, cut, "cpu"), toks.cpu())
     cpu_secs = time.perf_counter() - t0
     err = float((card - cpu).abs().max())
-    print(f"  {LM_CPU_LAYERS} layers at full width, float32, batch "
-          f"{LM_CPU_BATCH}: prefill of {LM_CPU_PROMPT} and {LM_CPU_STEPS} "
-          f"decode steps, the card against the CPU ({cpu_secs:.1f} s): max "
-          f"|difference| {err:.3g} (bound 1e-3)")
+    drops = (f"; dropped assignments per MoE call {card_drops} (CPU "
+             f"{cpu_drops})" if card_drops else "")
+    print(f"  {layers} layers at full width, float32, batch {batch}: "
+          f"prefill of {prompt} and {steps} decode steps, the card against "
+          f"the CPU ({cpu_secs:.1f} s): max |difference| {err:.3g} (bound "
+          f"1e-3){drops}")
     assert err <= 1e-3, err
-    return dict(max_abs_err=err, cpu_seconds=cpu_secs)
+    assert card_drops == cpu_drops, (card_drops, cpu_drops)
+    return dict(max_abs_err=err, cpu_seconds=cpu_secs, drops=card_drops)
 
 
 def _lm_attention(torch, dev, walk, plain, library, shape_q, shape_kv,
@@ -2500,14 +2626,11 @@ def _lm_gemma3(torch, dev) -> dict:
     (6 layers): a 2048-token prompt and 32 decode steps through the ring
     caches, decode against a teacher-forced forward; the flash banded walk
     against the dense windowed attention in float32."""
-    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import layers, transformer as tt
     from repro_torch.models.flash import flash_banded_attention
 
-    base = get_config("gemma3-12b")
-    cfg = dataclasses.replace(base, n_layers=GEMMA3_LAYERS,
-                              block_pattern=base.block_pattern[:GEMMA3_LAYERS])
+    cfg = _cut_cfg(get_config("gemma3-12b"), GEMMA3_LAYERS)
     g = torch.Generator(device=dev).manual_seed(23)
     served = tt.compute_params(tt.init_params(g, cfg), cfg)
     torch.cuda.empty_cache()
@@ -2576,6 +2699,287 @@ def phase_lm_serve(torch, dev) -> dict:
                 gemma3=gemma3, seconds=secs)
 
 
+def _moe_drops(torch, tt, served, cfg, prompt, tok, new: int) -> dict:
+    """The share of (token, k) assignments dropped in the first MoE layer
+    at the prefill of ``prompt`` and at the decode step of ``tok`` after
+    it (and over all MoE layers), with the capacities, and the experts
+    each MoE layer's decode step routes to."""
+    from repro_torch.models.moe import moe_capacity
+
+    with _routes() as pre:
+        _, cache = tt.forward(served, cfg, prompt, return_cache=True,
+                              cache_len=prompt.shape[1] + new)
+    with _routes() as dec:
+        tt.decode_step(served, cfg, cache, tok)
+
+    def share(routes):
+        return float(sum(int((~r.keep).sum()) for r in routes)
+                     / sum(r.keep.numel() for r in routes))
+
+    m, tokens = cfg.moe, prompt.numel()
+    res = dict(prefill_capacity=moe_capacity(m, min(m.group_size, tokens)),
+               decode_capacity=moe_capacity(m, min(m.group_size,
+                                                   prompt.shape[0])),
+               prefill_drop_share=share(pre[:1]),
+               decode_drop_share=share(dec[:1]),
+               prefill_drop_share_all_layers=share(pre),
+               decode_drop_share_all_layers=share(dec),
+               decode_experts_routed=[int(torch.unique(r.top_e[r.keep])
+                                          .numel()) for r in dec])
+    print(f"  dropped (token, k) assignments in the first MoE layer: "
+          f"{res['prefill_drop_share']:.4f} at the prefill (capacity "
+          f"{res['prefill_capacity']}), {res['decode_drop_share']:.4f} at a "
+          f"decode step (capacity {res['decode_capacity']}); over all "
+          f"{len(pre)} MoE layers {res['prefill_drop_share_all_layers']:.4f}"
+          f" and {res['decode_drop_share_all_layers']:.4f}; a decode step "
+          f"routes to {sum(res['decode_experts_routed']) / len(dec):.1f} of "
+          f"{m.n_experts} experts a layer")
+    return res
+
+
+def _mix_serve(torch, dev, cfg, served, new: int, name: str, seed: int):
+    """Phase 12: ``cfg`` served through the launcher's ``serve`` at batch
+    ``MIX_BATCH``, prompt ``MIX_PROMPT``, greedy, with the MoE drop shares,
+    the bounds, a decode step's profile, and the generated steps replayed
+    (their argmax must be the tokens).  Returns (row, prompt, tokens, the
+    replayed logits)."""
+    from repro_torch.models import transformer as tt
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab, (MIX_BATCH, MIX_PROMPT),
+                           generator=g, device=dev)
+    out, tokens = _lm_served(torch, dev, cfg, served, prompt, new, name)
+    routed = None
+    if cfg.moe_layers:
+        out["moe"] = _moe_drops(torch, tt, served, cfg, prompt, tokens[:, :1],
+                                new)
+        routed = out["moe"]["decode_experts_routed"]
+    out.update(_lm_bounds(cfg, served, MIX_BATCH, MIX_PROMPT,
+                          MIX_PROMPT + new, routed))
+    print(f"  bounds: prefill {out['prefill_bound_ms']:.3f} ms "
+          f"({out['prefill_bound_by']}), decode step "
+          f"{out['decode_bound_ms']:.4f} ms ({out['decode_bound_by']}); "
+          f"{out['decode_weight_bytes'] / 1e9:.3f} GB of weights read a "
+          f"step ({out['weight_bytes'] / 1e9:.3f} GB by the prefill), KV "
+          f"cache {out['kv_cache_bytes'] / 1e9:.3f} GB at full length, "
+          f"recurrent state {out['state_bytes'] / 1e6:.3f} MB")
+    out["profile"] = _lm_decode_profile(
+        torch, served, cfg, prompt, tokens[:, :1], new,
+        f"{cfg.name.split('-')[0]}_decode_step")
+    dec, _ = _lm_replay(torch, tt, served, cfg, prompt, tokens)
+    assert torch.equal(dec.argmax(dim=-1).int(), tokens), "replay differs"
+    return out, prompt, tokens, dec
+
+
+def _mix_vs_f32(torch, cfg, params, prompt, tokens, what: str,
+                max_bound: float | None) -> dict:
+    """The bf16 steps of ``cfg`` (a cut of a served MoE model) against a
+    float32 decode replay of the same tokens with the same weights: the
+    same groups route, so routing flips near a bf16 tie are the only
+    difference in kind; with the greedy agreement."""
+    import dataclasses
+    from repro_torch.models import transformer as tt
+
+    dec16, _ = _lm_replay(torch, tt, params, cfg, prompt, tokens)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    dec32, _ = _lm_replay(torch, tt, tt.compute_params(params, cfg32), cfg32,
+                          prompt, tokens)
+    res = _lm_close(torch, dec16, dec32, cfg.vocab, what,
+                    max_bound=max_bound)
+    res["greedy_agreement"] = float(
+        (dec16[..., :cfg.vocab].argmax(-1) == dec32[..., :cfg.vocab]
+         .argmax(-1)).float().mean())
+    print(f"    greedy agreement of the bf16 and float32 steps "
+          f"{res['greedy_agreement']:.4f}")
+    return res
+
+
+def _mix_moe(torch, dev, arch: str, layers: int | None, f32_layers: int,
+             seed: int) -> dict:
+    """Phase 12 (a)-(c): an MoE config (cut to ``layers``, if given) with
+    bf16 parameters drawn from a seed, served; its first ``f32_layers``
+    against float32; deepseek's first 2 layers on the card against the
+    CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tt
+
+    full = get_config(arch)
+    layers = layers or full.n_layers
+    cfg = _cut_cfg(dataclasses.replace(full, param_dtype=torch.bfloat16),
+                   layers)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    served = tt.init_params(g, cfg)    # bf16: the served values
+    print(f"  {arch}: {cfg.param_count() / 1e9:.3f} B parameters "
+          f"({cfg.active_param_count() / 1e9:.3f} B active), {layers} "
+          f"layers, bf16 from a seed")
+    name = arch if layers == full.n_layers else f"{arch}, {layers} layers"
+    out, prompt, tokens, dec = _mix_serve(torch, dev, cfg, served, MOE_NEW,
+                                          name, seed + 1)
+    del dec
+    cut, p = _lm_cut(cfg, served, f32_layers)
+    # the largest difference is reported only: a routing flip near a bf16
+    # tie moves a token by a whole expert's output
+    out["bf16_vs_f32"] = _mix_vs_f32(
+        torch, cut, p, prompt, tokens, f"{arch}, first {f32_layers} of "
+        f"{layers} layers: the bf16 steps against a float32 decode replay",
+        max_bound=None)
+    torch.cuda.empty_cache()
+    if arch == "deepseek-moe-16b":
+        out["card_vs_cpu"] = _lm_card_vs_cpu(torch, dev, cfg, served,
+                                             DEEPSEEK_CPU_LAYERS)
+    return out
+
+
+def _mix_recurrent(torch, dev, arch: str, cpu_layers: int | None,
+                   cpu_prompt: int, seed: int) -> dict:
+    """Phase 12 (d), (e): a recurrent config, float32 parameters cast once
+    to bf16, served; the replayed steps against teacher-forced bf16 and
+    float32 forwards; greedy tokens where no flip is possible; the card
+    against the CPU.  An SSD forward runs whole chunks, so the teacher-
+    forced sequence is padded with its last token to a chunk multiple
+    (the compared positions do not see the padding: the block is
+    causal)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tt
+
+    cfg = get_config(arch)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = tt.init_params(g, cfg)                        # float32
+    served = tt.compute_params(params, cfg)                # bf16 weights
+    print(f"  {arch}: {cfg.param_count() / 1e9:.3f} B parameters, "
+          f"{cfg.n_layers} layers")
+    out, prompt, tokens, dec = _mix_serve(torch, dev, cfg, served, REC_NEW,
+                                          arch, seed + 1)
+    full = _teacher_forced(torch, cfg, prompt, tokens)
+    steps = slice(MIX_PROMPT - 1, MIX_PROMPT + REC_NEW - 1)
+    fwd = tt.forward(served, cfg, full)[:, steps].float()
+    out["decode_vs_forward"] = _lm_close(
+        torch, dec, fwd, cfg.vocab, f"{arch} decode_step against forward, "
+        "bf16", REC_RMS, REC_MAX)
+    del fwd, served
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    fwd32 = tt.forward(params, cfg32, full)[:, steps].clone()
+    out["bf16_vs_f32"] = _lm_close(
+        torch, dec, fwd32, cfg.vocab, "generated bf16 steps against a "
+        "float32 teacher-forced forward", REC_RMS, REC_MAX)
+    out["greedy"] = _lm_greedy(torch, tokens, dec, fwd32, cfg.vocab)
+    print(f"  greedy tokens equal the float32 argmax on all "
+          f"{out['greedy']['compared']} of {out['greedy']['steps']} steps "
+          f"whose margin exceeds twice their largest difference; on "
+          f"{out['greedy']['agreement_all_steps']:.4f} of all steps")
+    del fwd32, dec
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = _lm_card_vs_cpu(torch, dev, cfg, params,
+                                         cpu_layers or cfg.n_layers,
+                                         prompt=cpu_prompt)
+    return out
+
+
+def _teacher_forced(torch, cfg, prompt, tokens):
+    """The prompt and all generated tokens but the last, padded with the
+    last of them to a multiple of SSD's 128-token chunk for an SSD
+    config."""
+    full = torch.cat([prompt, tokens], dim=1)[:, :-1]
+    pad = (-full.shape[1]) % 128 if "ssd" in cfg.block_pattern else 0
+    return torch.cat([full, full[:, -1:].expand(-1, pad)], dim=1)
+
+
+def phase_lm_mixers(torch, dev) -> dict:
+    """Phase 12: the MoE, RG-LRU and SSD serving paths (module
+    docstring)."""
+    t0 = time.perf_counter()
+    # the bf16 GEMMs reduce in float32, as in phase 11
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out = {}
+    with torch.no_grad():
+        out["deepseek"] = _mix_moe(torch, dev, "deepseek-moe-16b", None,
+                                   DEEPSEEK_F32_LAYERS, 24)
+        torch.cuda.empty_cache()
+        out["grok"] = _mix_moe(torch, dev, "grok-1-314b", GROK_LAYERS, 1, 26)
+        torch.cuda.empty_cache()
+        out["recurrentgemma"] = _mix_recurrent(
+            torch, dev, "recurrentgemma-2b", RG_CPU_LAYERS, LM_CPU_PROMPT, 28)
+        torch.cuda.empty_cache()
+        out["mamba2"] = _mix_recurrent(torch, dev, "mamba2-130m", None,
+                                       MAMBA_CPU_PROMPT, 30)
+        torch.cuda.empty_cache()
+    for name, cell in out.items():
+        assert not any(cell["launches"].values()), (name, cell["launches"])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 12: {out['seconds']:.1f} s")
+    return out
+
+
+def bf16_drift(argv) -> int:
+    """``chip_smoke.py --bf16-drift [ARCH ...]``: the CPU estimate phase
+    12's bfloat16 bounds were set from.  Each config at full width, cut in
+    depth (grok-1-314b also to a 32768-row vocabulary and experts of 8192,
+    to fit the CPU; its 8 experts top-2 kept), at phase 12's batch,
+    prompt and new tokens: bf16 greedy tokens from ``generate``, replayed;
+    an MoE config's steps against a float32 decode replay, a recurrent
+    config's against teacher-forced bf16 and float32 forwards.  Prints the
+    RMS and largest differences over the logits' std.  Runs on the CPU."""
+    import dataclasses
+    import torch
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tt
+    from repro_torch.serving.engine import generate
+
+    cases = {
+        "recurrentgemma-2b": [(3, {}), (6, {})],
+        "mamba2-130m": [(6, {}), (24, {})],
+        "deepseek-moe-16b": [(2, {"param_dtype": torch.bfloat16})],
+        "grok-1-314b": [(1, {"param_dtype": torch.bfloat16, "vocab": 32768,
+                             "moe": "d_expert=8192"})],
+    }
+    with torch.no_grad():
+        for arch in argv or cases:
+            for layers, over in cases[arch]:
+                base = get_config(arch)
+                if over.get("moe"):
+                    over = dict(over, moe=dataclasses.replace(
+                        base.moe, d_expert=8192))
+                cfg = _cut_cfg(dataclasses.replace(base, **over), layers)
+                g = torch.Generator().manual_seed(31)
+                params = tt.init_params(g, cfg)
+                served = tt.compute_params(params, cfg)
+                new = MOE_NEW if cfg.moe_layers else REC_NEW
+                prompt = torch.randint(0, cfg.vocab, (MIX_BATCH, MIX_PROMPT),
+                                       generator=g)
+                t0 = time.perf_counter()
+                tokens = generate(served, cfg, prompt, new, device="cpu")
+                dec, _ = _lm_replay(torch, tt, served, cfg, prompt, tokens)
+                assert torch.equal(dec.argmax(-1).int(), tokens)
+                cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+                p32 = tt.compute_params(params, cfg32)
+                rows = {}
+                if cfg.moe_layers:
+                    ref, _ = _lm_replay(torch, tt, p32, cfg32, prompt, tokens)
+                    rows["bf16 steps vs float32 decode replay"] = ref
+                else:
+                    full = _teacher_forced(torch, cfg, prompt, tokens)
+                    steps = slice(MIX_PROMPT - 1, MIX_PROMPT + new - 1)
+                    rows["decode vs bf16 forward"] = tt.forward(
+                        served, cfg, full)[:, steps].float()
+                    rows["bf16 steps vs float32 forward"] = tt.forward(
+                        p32, cfg32, full)[:, steps]
+                for what, ref in rows.items():
+                    d = _lm_diff(torch, dec, ref, cfg.vocab)
+                    agree = float((dec[..., :cfg.vocab].argmax(-1)
+                                   == ref[..., :cfg.vocab].argmax(-1))
+                                  .float().mean())
+                    print(f"{arch}, {layers} layers{' ' + str(over) if over else ''}"
+                          f": {what}: RMS {d['rms_over_std']:.4g}, largest "
+                          f"{d['max_over_std']:.4g} of the std "
+                          f"{d['std']:.4g}; argmax agreement {agree:.4f} "
+                          f"({time.perf_counter() - t0:.0f} s)", flush=True)
+                del params, served, p32, rows
+    return 0
+
+
 def _first_row(x):
     """Row 0 of a stacked state (tensors, named tuples, dicts)."""
     if isinstance(x, tuple) and hasattr(x, "_fields"):
@@ -2602,6 +3006,7 @@ def main() -> int:
     paper = phase_paper_path(torch, dev)
     lm = phase_lm_serve(torch, dev)
     assert not any(lm["tinyllama"]["launches"].values()), lm["tinyllama"]
+    mixers = phase_lm_mixers(torch, dev)
     # each kernel's launches on every path, each counted from zero;
     # ``launches`` is its main path's: the fleet's three, and the sampler's
     # entry point
@@ -2620,7 +3025,10 @@ def main() -> int:
                "per_sensor_oracle": paper["oracle"][0]["launches"]["oracle"],
                "bearing_step": paper["bearing_step"]["launches"],
                "codecs": paper["codecs"]["launches"],
-               "lm_serve": lm["tinyllama"]["launches"]}
+               "lm_serve": lm["tinyllama"]["launches"],
+               **{f"lm_mixers_{name}": mixers[name]["launches"]
+                  for name in ("deepseek", "grok", "recurrentgemma",
+                               "mamba2")}}
     launches = dict(fleet_launches,
                     importance_select=importance["importance_select"])
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -2634,7 +3042,7 @@ def main() -> int:
         dict(card=smi, kernels=kernels, timing=extra, ptxas=ptxas,
              fleet=fleet, scarce_fleet=scarce, task_fleet=task_fleet,
              streamed=streamed, host_serve=host_serve, sharded=sharded,
-             paper_path=paper, lm_serve=lm),
+             paper_path=paper, lm_serve=lm, lm_mixers=mixers),
         indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -2647,4 +3055,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-rank"]:
         sys.exit(_sharded_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--bf16-drift"]:
+        sys.exit(bf16_drift(sys.argv[2:]))
     sys.exit(main())

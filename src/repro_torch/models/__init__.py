@@ -1,5 +1,6 @@
-"""The paper's HAR edge classifier, and the language model's attention
-decoders (config, layers, flash walks, transformer)."""
+"""The paper's HAR edge classifier, and the language model's decoders
+(config, layers, flash walks, the MoE FFN, the RG-LRU and SSD mixers,
+transformer)."""
 from .config import ModelConfig, MoEConfig, pattern_runs  # noqa: F401
 from .har import (  # noqa: F401
     HARConfig, har_init, har_apply, har_apply_quantized,

@@ -46,13 +46,11 @@ from repro_torch.serving import engine  # noqa: E402
 _j_decode_step = jax.jit(j_decode_step, static_argnums=1)
 REPO = Path(__file__).resolve().parent.parent
 TOL = dict(rtol=1e-5, atol=1e-5)
-# the architectures whose mixers the port has, and the rest with the part
-# each one's error message names
+# the attention decoders (the MoE, RG-LRU and SSD configs are held in
+# tests/test_torch_lm_mixers.py), and the configs the port does not run yet
+# with the part each one's error message names
 PORTED = ("tinyllama-1.1b", "gemma-2b", "yi-34b", "gemma3-12b")
-UNPORTED = {"recurrentgemma-2b": "'rglru' mixer",
-            "deepseek-moe-16b": "MoE FFN", "grok-1-314b": "MoE FFN",
-            "whisper-small": "whisper encoder", "mamba2-130m": "'ssd' mixer",
-            "qwen2-vl-2b": "M-RoPE"}
+UNPORTED = {"whisper-small": "whisper encoder", "qwen2-vl-2b": "M-RoPE"}
 
 
 def _close(got, want, **tol):
@@ -489,6 +487,8 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 def test_importing_the_lm_port_leaves_jax_out():
     code = ("import sys; import repro_torch.models, repro_torch.configs, "
+            "repro_torch.models.moe, repro_torch.models.rglru, "
+            "repro_torch.models.ssd, "
             "repro_torch.serving.engine, repro_torch.launch.serve; "
             "[repro_torch.configs.get_config(a) for a in "
             "repro_torch.configs.ARCHS]; "
