@@ -139,9 +139,30 @@ Phases (any failure exits non-zero and prints no result):
    the margin rules out a flip, and the card against the CPU in float32
    within 1e-3 (recurrentgemma's first 3 layers at prompt 32, mamba2
    whole at prompt 256);
-13. the kernel table as one JSON line (each kernel's launches on every
-   path, ``per_sensor_oracle``, ``bearing_step``, ``codecs``, ``lm_serve``
-   and the ``lm_mixers_*`` cells among them), then the result line.
+13. the encoder-decoder and M-RoPE serving paths, each at its full config
+   (float32 parameters from a seed cast once to bf16) served through
+   ``serve`` at batch 8, greedy, 64 new tokens, with prefill ms, decode ms
+   a step, tokens/s, peak device memory, launches, device busy and idle
+   share of a decode step and their bounds, the generated steps replayed
+   (argmax equal to the tokens), 0 hand-kernel launches, and 2 layers in
+   float32 (batch 2, prompt 32, 4 steps) on the card against the CPU
+   within 1e-3: (a) whisper-small (12 encoder and 12 decoder layers, 12
+   heads padded to 16) over 1500 standard-normal frames, prompt 64, the
+   steps against teacher-forced bf16 and float32 forwards with the same
+   frames within ``BF16_RMS`` and ``BF16_MAX`` and greedy tokens equal to
+   the float32 argmax where the margin rules out a flip, the CPU cut with
+   2 encoder layers over all 1500 frames; (b) qwen2-vl-2b (28 layers,
+   M-RoPE) after 64 standard-normal patches, prompt 512,
+   ``cache_margin=64`` so that no patch is evicted, the prefill logits
+   against a float32 forward and the bf16 steps against a float32 decode
+   replay of the same tokens (the reference's decode step gives M-RoPE
+   other ids than its forward), each within ``BF16_RMS`` and
+   ``BF16_MAX``, with the greedy agreement, the CPU cut after all 64
+   patches;
+14. the kernel table as one JSON line (each kernel's launches on every
+   path, ``per_sensor_oracle``, ``bearing_step``, ``codecs``, ``lm_serve``,
+   the ``lm_mixers_*`` and the ``lm_multimodal_*`` cells among them), then
+   the result line.
 
 ``python3 chip_smoke.py --bf16-drift [ARCH ...]`` runs, on the CPU, the
 estimate phase 12's bfloat16 bounds were set from (``bf16_drift``).
@@ -202,6 +223,11 @@ RG_CPU_LAYERS, MAMBA_CPU_PROMPT = 3, 256
 # extrapolated to full depth (recurrentgemma 0.075 and 0.48; mamba2,
 # measured whole, 0.056 and 0.36; PERF.md §6)
 REC_RMS, REC_MAX = 0.15, 1.0
+# phase 13 (at phase 12's batch): whisper-small's full config, prompt 64
+# over its 1500 frames; qwen2-vl-2b's, its 64 patches and a 512-token prompt,
+# with a cache margin of 64 so that no patch is evicted; 64 new tokens each;
+# each cut to 2 layers (and 2 encoder layers) for the card against the CPU
+MM_NEW, WHISPER_PROMPT, QWEN_PROMPT, QWEN_MARGIN = 64, 64, 512, 64
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 on the tensor cores
@@ -2266,14 +2292,16 @@ def _lm_close(torch, got, want, vocab: int, what: str,
     return res
 
 
-def _lm_replay(torch, tt, params, cfg, prompt, tokens):
-    """The prompt's prefill, then the generated tokens decoded teacher-
-    forced on the same shapes as ``generate`` (so an MoE config routes the
+def _lm_replay(torch, tt, params, cfg, prompt, tokens, margin: int = 0,
+               **extra):
+    """The prompt's prefill (with ``extra``'s frames or patches), then the
+    generated tokens decoded teacher-forced on the same shapes as
+    ``generate`` with ``cache_margin=margin`` (so an MoE config routes the
     same groups): every step's logits (B, new, V) in float32, and the
     attention runs' cache widths after the prefill."""
     new = tokens.shape[1]
     lg, cache = tt.forward(params, cfg, prompt, return_cache=True,
-                           cache_len=prompt.shape[1] + new)
+                           cache_len=prompt.shape[1] + new + margin, **extra)
     widths = [run["k"].shape[2] for run in cache["runs"] if "k" in run]
     out = [lg[:, -1].float()]
     del lg
@@ -2293,24 +2321,30 @@ def _lm_greedy(torch, tokens, dec, ref, vocab: int) -> dict:
     clear = (top2[..., 0] - top2[..., 1]) > 2 * err
     want = ref.argmax(dim=-1)
     assert torch.equal(tokens.long()[clear], want[clear])
-    return dict(compared=int(clear.sum()), steps=clear.numel(),
-                agreement_all_steps=float((tokens.long() == want)
-                                          .float().mean()))
+    res = dict(compared=int(clear.sum()), steps=clear.numel(),
+               agreement_all_steps=float((tokens.long() == want)
+                                         .float().mean()))
+    print(f"  greedy tokens equal the float32 argmax on all "
+          f"{res['compared']} of {res['steps']} steps whose margin exceeds "
+          f"twice their largest difference; on "
+          f"{res['agreement_all_steps']:.4f} of all steps")
+    return res
 
 
-def _lm_served(torch, dev, cfg, served, prompt, new: int, name: str):
-    """``repro_torch.launch.serve.serve`` once to warm up and once timed,
-    with the peak device memory of the timed call and the four kernels'
+def _lm_served(torch, dev, cfg, served, prompt, new: int, name: str, **kw):
+    """``repro_torch.launch.serve.serve`` (``kw``: its ``cache_margin``,
+    ``enc_frames``, ``patch_embeds``) once to warm up and once timed, with
+    the peak device memory of the timed call and the four kernels'
     launches in it."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
 
-    serve(served, cfg, prompt, 4, device=dev)
+    serve(served, cfg, prompt, 4, device=dev, **kw)
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    out = serve(served, cfg, prompt, new, device=dev)
+    out = serve(served, cfg, prompt, new, device=dev, **kw)
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     tokens = out.pop("tokens")
@@ -2344,10 +2378,14 @@ def _lm_bounds(cfg, served, batch: int, prompt: int, cache_len: int,
     run's state read and written once a step (written once by the
     prefill); the matmuls' operations (``active_param_count``) and the
     (windowed) causal attention's at the bf16 tensor-core peak, the SSD
-    chunk scan's float32 einsums at the float32 peak."""
+    chunk scan's float32 einsums at the float32 peak.  An
+    encoder-decoder's are :func:`_encdec_bounds`'."""
     import math
     from repro_torch.models.rglru import rglru_state_shapes
     from repro_torch.models.ssd import ssd_state_shapes
+
+    if cfg.encoder_layers:
+        return _encdec_bounds(cfg, served, batch, prompt, cache_len)
 
     def size(t):
         return t.numel() * t.element_size()
@@ -2399,15 +2437,64 @@ def _lm_bounds(cfg, served, batch: int, prompt: int, cache_len: int,
                 kv_cache_bytes=kv, state_bytes=state)
 
 
+def _encdec_bounds(cfg, served, batch: int, prompt: int,
+                   cache_len: int) -> dict:
+    """:func:`_lm_bounds` for an encoder-decoder, with the work counted from
+    the parameter tree: the prefill runs the encoder's matmuls and
+    non-causal attention over the ``encoder_frames`` of each sequence,
+    each decoder layer's cross K/V projections over them, and the
+    decoder's other matmuls, causal self-attention and cross-attention
+    over the prompt, and the tied unembedding; it reads every weight and
+    the frames once and writes both caches.  A decode step reads the
+    decoder's weights but the cross K/V projections, the tied embedding,
+    the self-attention cache at its full length and the cross K/V cache.
+    Matmuls and attention at the bf16 tensor-core peak."""
+    def size(t):
+        return t.numel() * t.element_size()
+
+    def matmul(run, skip=()):
+        return sum(v.numel() for k, v in run.items()
+                   if "norm" not in k and k not in skip)
+
+    dec, enc = served["runs"][0], served["encoder"]["runs"][0]
+    cross_kv = ("xwk", "xwv")
+    item = served["embed"].element_size()
+    t, hd, layers = cfg.encoder_frames, cfg.n_heads * cfg.head_dim, cfg.n_layers
+    vd = cfg.vocab * cfg.d_model
+    weights = (size(served["embed"]) + sum(size(v) for v in dec.values())
+               + sum(size(v) for v in enc.values()))
+    decode_weights = size(served["embed"]) + sum(
+        size(v) for k, v in dec.items() if k not in cross_kv)
+    kv = 2 * layers * batch * cache_len * cfg.n_kv * cfg.head_dim * item
+    cross = 2 * layers * batch * t * cfg.n_kv * cfg.head_dim * item
+    frames = batch * t * cfg.d_model * item
+    flops_prefill = (2 * batch * t * (matmul(enc) + matmul(dec) - matmul(
+        dec, cross_kv)) + 4 * batch * hd * t * t * cfg.encoder_layers
+        + 2 * batch * prompt * (matmul(dec, cross_kv) + vd)
+        + 4 * batch * hd * layers * (_attended(prompt, None) + prompt * t))
+    flops_decode = (2 * batch * (matmul(dec, cross_kv) + vd)
+                    + 4 * batch * hd * layers * (cache_len + t))
+    prefill = _bound_ms(weights + frames + kv * prompt / cache_len + cross,
+                        flops_prefill, BF16_FLOPS)
+    decode = _bound_ms(decode_weights + kv + cross, flops_decode, BF16_FLOPS)
+    return dict(prefill_bound_ms=prefill[0], prefill_bound_by=prefill[1],
+                decode_bound_ms=decode[0], decode_bound_by=decode[1],
+                weight_bytes=weights, decode_weight_bytes=decode_weights,
+                kv_cache_bytes=kv, cross_kv_bytes=cross, state_bytes=0,
+                prefill_flops=flops_prefill)
+
+
 def _lm_decode_profile(torch, served, cfg, prompt, tok, new: int,
-                       name: str) -> dict:
+                       name: str, margin: int = 0, **extra) -> dict:
     """Launches, device busy time and idle share of a decode step: four
-    steps after a prefill of ``prompt`` into the cache that serving
-    ``new`` tokens builds, timed on the host clock and then profiled."""
+    steps after a prefill of ``prompt`` (and ``extra``'s frames or
+    patches) into the cache that serving ``new`` tokens with
+    ``cache_margin=margin`` builds, timed on the host clock and then
+    profiled."""
     from repro_torch.models import transformer as tt
 
     _, cache = tt.forward(served, cfg, prompt, return_cache=True,
-                          cache_len=prompt.shape[1] + new)
+                          cache_len=prompt.shape[1] + new + margin, **extra)
     state = dict(cache=cache)
 
     def four_steps():
@@ -2459,30 +2546,33 @@ def _lm_tinyllama(torch, dev, cfg, params, served) -> dict:
                                    "generated bf16 steps against a float32 "
                                    "teacher-forced forward")
     out["greedy"] = _lm_greedy(torch, tokens, dec, fwd32, cfg.vocab)
-    print(f"  greedy tokens equal the float32 argmax on all "
-          f"{out['greedy']['compared']} of {out['greedy']['steps']} steps "
-          f"whose margin exceeds twice their largest difference; on "
-          f"{out['greedy']['agreement_all_steps']:.4f} of all steps")
     return out
 
 
 def _cut_cfg(cfg, n: int):
-    """``cfg`` cut to its first ``n`` layers."""
+    """``cfg`` cut to its first ``n`` layers (and encoder layers)."""
     import dataclasses
     return dataclasses.replace(
         cfg, n_layers=n, block_pattern=cfg.block_pattern[:n],
-        moe_layers=tuple(i for i in cfg.moe_layers if i < n))
+        moe_layers=tuple(i for i in cfg.moe_layers if i < n),
+        encoder_layers=min(cfg.encoder_layers, n))
 
 
 def _lm_cut(cfg, params, n: int):
-    """``cfg`` and ``params`` cut to their first ``n`` layers (the runs'
-    leaves as views of the same tensors)."""
+    """``cfg`` and ``params`` cut to their first ``n`` layers, and the
+    encoder to its first ``n`` (the runs' leaves as views of the same
+    tensors)."""
     from repro_torch.models.config import pattern_runs
     runs = [{k: v[:n - start] for k, v in run.items()}
             for run, (_, _, start, _) in zip(params["runs"],
                                              pattern_runs(cfg))
             if start < n]
-    return _cut_cfg(cfg, n), dict(params, runs=runs)
+    cut = dict(params, runs=runs)
+    if "encoder" in params:
+        enc = params["encoder"]
+        cut["encoder"] = dict(enc, runs=[{k: v[:n] for k, v in
+                                          enc["runs"][0].items()}])
+    return _cut_cfg(cfg, n), cut
 
 
 @contextlib.contextmanager
@@ -2506,10 +2596,12 @@ def _routes():
 def _lm_card_vs_cpu(torch, dev, cfg, params, layers: int = LM_CPU_LAYERS,
                     batch: int = LM_CPU_BATCH, prompt: int = LM_CPU_PROMPT,
                     steps: int = LM_CPU_STEPS) -> dict:
-    """Phase 11 (b), 12 (b, d, e): the first ``layers`` layers at full
-    width in float32, a ``prompt``-token prefill and ``steps`` decode
-    steps on the card and on the CPU with the same weights: logits within
-    1e-3, and each MoE layer's dropped assignments equal."""
+    """Phase 11 (b), 12 (b, d, e), 13: the first ``layers`` layers (and
+    encoder layers) at full width in float32, a ``prompt``-token prefill
+    (after all the config's patches, or over all its frames) and ``steps``
+    decode steps, in a cache that holds them all, on the card and on the
+    CPU with the same weights and inputs: logits within 1e-3, and each MoE
+    layer's dropped assignments equal."""
     import dataclasses
     from repro_torch.models import transformer as tt
 
@@ -2518,12 +2610,14 @@ def _lm_card_vs_cpu(torch, dev, cfg, params, layers: int = LM_CPU_LAYERS,
     g = torch.Generator(device=dev).manual_seed(20)
     toks = torch.randint(0, cfg.vocab, (batch, prompt + steps), generator=g,
                          device=dev)
+    extra = _mm_extra(torch, cfg, batch, g)
 
-    def run(p, toks):
+    def run(p, toks, extra):
         with _routes() as seen:
             lg, cache = tt.forward(p, cut, toks[:, :prompt],
                                    return_cache=True,
-                                   cache_len=toks.shape[1])
+                                   cache_len=toks.shape[1]
+                                   + cfg.vision_patches, **extra)
             outs = [lg]
             for i in range(prompt, toks.shape[1]):
                 lg, cache = tt.decode_step(p, cut, cache, toks[:, i:i + 1])
@@ -2531,10 +2625,11 @@ def _lm_card_vs_cpu(torch, dev, cfg, params, layers: int = LM_CPU_LAYERS,
         return (torch.cat(outs, dim=1),
                 [int((~r.keep).sum()) for r in seen])
 
-    card, card_drops = run(tt.compute_params(p, cut), toks)
+    card, card_drops = run(tt.compute_params(p, cut), toks, extra)
     card = card.cpu()
     t0 = time.perf_counter()
-    cpu, cpu_drops = run(tt.compute_params(p, cut, "cpu"), toks.cpu())
+    cpu, cpu_drops = run(tt.compute_params(p, cut, "cpu"), toks.cpu(),
+                         {k: v.cpu() for k, v in extra.items()})
     cpu_secs = time.perf_counter() - t0
     err = float((card - cpu).abs().max())
     drops = (f"; dropped assignments per MoE call {card_drops} (CPU "
@@ -2737,38 +2832,46 @@ def _moe_drops(torch, tt, served, cfg, prompt, tok, new: int) -> dict:
     return res
 
 
-def _mix_serve(torch, dev, cfg, served, new: int, name: str, seed: int):
-    """Phase 12: ``cfg`` served through the launcher's ``serve`` at batch
-    ``MIX_BATCH``, prompt ``MIX_PROMPT``, greedy, with the MoE drop shares,
-    the bounds, a decode step's profile, and the generated steps replayed
-    (their argmax must be the tokens).  Returns (row, prompt, tokens, the
-    replayed logits)."""
+def _mix_serve(torch, dev, cfg, served, new: int, name: str, seed: int,
+               prompt_len: int = MIX_PROMPT, margin: int = 0):
+    """Phases 12, 13: ``cfg`` served through the launcher's ``serve`` at
+    batch ``MIX_BATCH``, greedy, after its frames or patches (standard
+    normal from the seed) with ``cache_margin=margin``, with the MoE drop
+    shares, the bounds, a decode step's profile, and the generated steps
+    replayed (their argmax must be the tokens).  Returns (row, prompt,
+    the frames or patches, tokens, the replayed logits)."""
     from repro_torch.models import transformer as tt
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    prompt = torch.randint(0, cfg.vocab, (MIX_BATCH, MIX_PROMPT),
+    extra = _mm_extra(torch, cfg, MIX_BATCH, g)
+    prompt = torch.randint(0, cfg.vocab, (MIX_BATCH, prompt_len),
                            generator=g, device=dev)
-    out, tokens = _lm_served(torch, dev, cfg, served, prompt, new, name)
+    out, tokens = _lm_served(torch, dev, cfg, served, prompt, new, name,
+                             cache_margin=margin, **extra)
     routed = None
     if cfg.moe_layers:
         out["moe"] = _moe_drops(torch, tt, served, cfg, prompt, tokens[:, :1],
                                 new)
         routed = out["moe"]["decode_experts_routed"]
-    out.update(_lm_bounds(cfg, served, MIX_BATCH, MIX_PROMPT,
-                          MIX_PROMPT + new, routed))
+    out.update(_lm_bounds(cfg, served, MIX_BATCH,
+                          prompt_len + cfg.vision_patches,
+                          prompt_len + new + margin, routed))
+    cross = out.get("cross_kv_bytes")
     print(f"  bounds: prefill {out['prefill_bound_ms']:.3f} ms "
           f"({out['prefill_bound_by']}), decode step "
           f"{out['decode_bound_ms']:.4f} ms ({out['decode_bound_by']}); "
           f"{out['decode_weight_bytes'] / 1e9:.3f} GB of weights read a "
           f"step ({out['weight_bytes'] / 1e9:.3f} GB by the prefill), KV "
           f"cache {out['kv_cache_bytes'] / 1e9:.3f} GB at full length, "
-          f"recurrent state {out['state_bytes'] / 1e6:.3f} MB")
+          + (f"cross K/V {cross / 1e9:.3f} GB" if cross else
+             f"recurrent state {out['state_bytes'] / 1e6:.3f} MB"))
     out["profile"] = _lm_decode_profile(
         torch, served, cfg, prompt, tokens[:, :1], new,
-        f"{cfg.name.split('-')[0]}_decode_step")
-    dec, _ = _lm_replay(torch, tt, served, cfg, prompt, tokens)
+        f"{cfg.name.split('-')[0]}_decode_step", margin, **extra)
+    dec, _ = _lm_replay(torch, tt, served, cfg, prompt, tokens, margin,
+                        **extra)
     assert torch.equal(dec.argmax(dim=-1).int(), tokens), "replay differs"
-    return out, prompt, tokens, dec
+    return out, prompt, extra, tokens, dec
 
 
 def _mix_vs_f32(torch, cfg, params, prompt, tokens, what: str,
@@ -2814,8 +2917,8 @@ def _mix_moe(torch, dev, arch: str, layers: int | None, f32_layers: int,
           f"({cfg.active_param_count() / 1e9:.3f} B active), {layers} "
           f"layers, bf16 from a seed")
     name = arch if layers == full.n_layers else f"{arch}, {layers} layers"
-    out, prompt, tokens, dec = _mix_serve(torch, dev, cfg, served, MOE_NEW,
-                                          name, seed + 1)
+    out, prompt, _, tokens, dec = _mix_serve(torch, dev, cfg, served,
+                                             MOE_NEW, name, seed + 1)
     del dec
     cut, p = _lm_cut(cfg, served, f32_layers)
     # the largest difference is reported only: a routing flip near a bf16
@@ -2850,8 +2953,8 @@ def _mix_recurrent(torch, dev, arch: str, cpu_layers: int | None,
     served = tt.compute_params(params, cfg)                # bf16 weights
     print(f"  {arch}: {cfg.param_count() / 1e9:.3f} B parameters, "
           f"{cfg.n_layers} layers")
-    out, prompt, tokens, dec = _mix_serve(torch, dev, cfg, served, REC_NEW,
-                                          arch, seed + 1)
+    out, prompt, _, tokens, dec = _mix_serve(torch, dev, cfg, served,
+                                             REC_NEW, arch, seed + 1)
     full = _teacher_forced(torch, cfg, prompt, tokens)
     steps = slice(MIX_PROMPT - 1, MIX_PROMPT + REC_NEW - 1)
     fwd = tt.forward(served, cfg, full)[:, steps].float()
@@ -2865,10 +2968,6 @@ def _mix_recurrent(torch, dev, arch: str, cpu_layers: int | None,
         torch, dec, fwd32, cfg.vocab, "generated bf16 steps against a "
         "float32 teacher-forced forward", REC_RMS, REC_MAX)
     out["greedy"] = _lm_greedy(torch, tokens, dec, fwd32, cfg.vocab)
-    print(f"  greedy tokens equal the float32 argmax on all "
-          f"{out['greedy']['compared']} of {out['greedy']['steps']} steps "
-          f"whose margin exceeds twice their largest difference; on "
-          f"{out['greedy']['agreement_all_steps']:.4f} of all steps")
     del fwd32, dec
     torch.cuda.empty_cache()
     out["card_vs_cpu"] = _lm_card_vs_cpu(torch, dev, cfg, params,
@@ -2909,6 +3008,126 @@ def phase_lm_mixers(torch, dev) -> dict:
         assert not any(cell["launches"].values()), (name, cell["launches"])
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 12: {out['seconds']:.1f} s")
+    return out
+
+
+def _mm_extra(torch, cfg, batch: int, g) -> dict:
+    """An encoder config's frames (batch, encoder_frames, D) or a vision
+    config's patches (batch, vision_patches, D), standard normal in float32
+    from ``g`` on its device, as the launcher draws them; {} otherwise."""
+    shape = None
+    if cfg.encoder_layers:
+        name, shape = "enc_frames", (batch, cfg.encoder_frames, cfg.d_model)
+    elif cfg.vision_patches:
+        name, shape = "patch_embeds", (batch, cfg.vision_patches, cfg.d_model)
+    if shape is None:
+        return {}
+    return {name: torch.randn(shape, generator=g, device=g.device)}
+
+
+def _tree_numel(tree) -> int:
+    """The elements of a parameter tree's leaves (``param_count`` counts
+    whisper's encoder MLP as gated)."""
+    if isinstance(tree, dict):
+        return sum(_tree_numel(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_tree_numel(v) for v in tree)
+    return tree.numel()
+
+
+def _mm_whisper(torch, dev) -> dict:
+    """Phase 13 (a): whisper-small's full config, float32 parameters cast
+    once to bf16, served over 1500 frames; the replayed steps against
+    teacher-forced bf16 and float32 forwards with the same frames, greedy
+    tokens where no flip is possible, and 2 encoder and 2 decoder layers
+    on the card against the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tt
+
+    cfg = get_config("whisper-small")
+    g = torch.Generator(device=dev).manual_seed(32)
+    params = tt.init_params(g, cfg)                        # float32
+    served = tt.compute_params(params, cfg)                # bf16 weights
+    print(f"  whisper-small: {_tree_numel(params) / 1e9:.3f} B parameters, "
+          f"{cfg.encoder_layers} encoder and {cfg.n_layers} decoder layers, "
+          f"{cfg.n_heads} heads padded to {cfg.padded_heads}")
+    out, prompt, extra, tokens, dec = _mix_serve(
+        torch, dev, cfg, served, MM_NEW, cfg.name, 33, WHISPER_PROMPT)
+    full = torch.cat([prompt, tokens], dim=1)[:, :-1]
+    steps = slice(WHISPER_PROMPT - 1, None)
+    fwd = tt.forward(served, cfg, full, **extra)[:, steps].float()
+    out["decode_vs_forward"] = _lm_close(
+        torch, dec, fwd, cfg.vocab, "whisper decode_step against forward, "
+        "bf16")
+    del fwd, served
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    fwd32 = tt.forward(params, cfg32, full, **extra)[:, steps].clone()
+    out["bf16_vs_f32"] = _lm_close(
+        torch, dec, fwd32, cfg.vocab, "generated bf16 steps against a "
+        "float32 teacher-forced forward")
+    out["greedy"] = _lm_greedy(torch, tokens, dec, fwd32, cfg.vocab)
+    del fwd32, dec
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = _lm_card_vs_cpu(torch, dev, cfg, params)
+    return out
+
+
+def _mm_qwen(torch, dev) -> dict:
+    """Phase 13 (b): qwen2-vl-2b's full config, float32 parameters cast
+    once to bf16, served after 64 patches with a cache margin of 64; the
+    prefill logits against a float32 forward, the bf16 steps against a
+    float32 decode replay of the same tokens (its decode step gives M-RoPE
+    other ids than a forward, so no teacher-forced forward is held), and
+    2 layers on the card against the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tt
+
+    cfg = get_config("qwen2-vl-2b")
+    g = torch.Generator(device=dev).manual_seed(34)
+    params = tt.init_params(g, cfg)                        # float32
+    served = tt.compute_params(params, cfg)                # bf16 weights
+    print(f"  qwen2-vl-2b: {_tree_numel(params) / 1e9:.3f} B parameters, "
+          f"{cfg.n_layers} layers, {cfg.vision_patches} patches")
+    out, prompt, extra, tokens, dec = _mix_serve(
+        torch, dev, cfg, served, MM_NEW, cfg.name, 35, QWEN_PROMPT,
+        QWEN_MARGIN)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    out["prefill_vs_f32"] = _lm_close(
+        torch, tt.forward(served, cfg, prompt, **extra),
+        tt.forward(params, cfg32, prompt, **extra), cfg.vocab,
+        "qwen2-vl prefill logits, bf16 against a float32 forward")
+    del served
+    torch.cuda.empty_cache()
+    dec32, _ = _lm_replay(torch, tt, params, cfg32, prompt, tokens,
+                          QWEN_MARGIN, **extra)
+    out["bf16_vs_f32"] = _lm_close(
+        torch, dec, dec32, cfg.vocab, "qwen2-vl bf16 steps against a "
+        "float32 decode replay")
+    out["greedy"] = _lm_greedy(torch, tokens, dec, dec32, cfg.vocab)
+    del dec32, dec
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = _lm_card_vs_cpu(torch, dev, cfg, params)
+    return out
+
+
+def phase_lm_multimodal(torch, dev) -> dict:
+    """Phase 13: the encoder-decoder and M-RoPE serving paths (module
+    docstring)."""
+    t0 = time.perf_counter()
+    # the bf16 GEMMs reduce in float32, as in phase 11
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out = {}
+    with torch.no_grad():
+        out["whisper"] = _mm_whisper(torch, dev)
+        torch.cuda.empty_cache()
+        out["qwen2vl"] = _mm_qwen(torch, dev)
+        torch.cuda.empty_cache()
+    for name, cell in out.items():
+        assert not any(cell["launches"].values()), (name, cell["launches"])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 13: {out['seconds']:.1f} s")
     return out
 
 
@@ -3007,6 +3226,7 @@ def main() -> int:
     lm = phase_lm_serve(torch, dev)
     assert not any(lm["tinyllama"]["launches"].values()), lm["tinyllama"]
     mixers = phase_lm_mixers(torch, dev)
+    multimodal = phase_lm_multimodal(torch, dev)
     # each kernel's launches on every path, each counted from zero;
     # ``launches`` is its main path's: the fleet's three, and the sampler's
     # entry point
@@ -3028,7 +3248,9 @@ def main() -> int:
                "lm_serve": lm["tinyllama"]["launches"],
                **{f"lm_mixers_{name}": mixers[name]["launches"]
                   for name in ("deepseek", "grok", "recurrentgemma",
-                               "mamba2")}}
+                               "mamba2")},
+               **{f"lm_multimodal_{name}": multimodal[name]["launches"]
+                  for name in ("whisper", "qwen2vl")}}
     launches = dict(fleet_launches,
                     importance_select=importance["importance_select"])
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -3042,7 +3264,8 @@ def main() -> int:
         dict(card=smi, kernels=kernels, timing=extra, ptxas=ptxas,
              fleet=fleet, scarce_fleet=scarce, task_fleet=task_fleet,
              streamed=streamed, host_serve=host_serve, sharded=sharded,
-             paper_path=paper, lm_serve=lm, lm_mixers=mixers),
+             paper_path=paper, lm_serve=lm, lm_mixers=mixers,
+             lm_multimodal=multimodal),
         indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -147,17 +147,16 @@ def host_server_state(state, device=None) -> HostServerState:
                  else telemetry_state(state.metrics, device)))
 
 
-def lm_params(tree, device=None) -> dict:
+def lm_params(tree, device=None):
     """``repro.models.init_params``'s LM parameter tree (``embed``,
-    ``final_norm``, ``unembed``, ``runs`` of stacked leaves) -> the port's
-    tree of the same names and layouts, each leaf's dtype kept."""
-    def leaf(x):
-        return torch.as_tensor(np.array(x), device=device)
-
-    out = {k: leaf(v) for k, v in tree.items() if k != "runs"}
-    out["runs"] = [{k: leaf(v) for k, v in run.items()}
-                   for run in tree["runs"]]
-    return out
+    ``final_norm``, ``unembed``, ``runs`` of stacked leaves, ``encoder``
+    with its own ``runs`` and ``final_norm``) -> the port's tree of the
+    same names and layouts, each leaf's dtype kept."""
+    if isinstance(tree, dict):
+        return {k: lm_params(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [lm_params(v, device) for v in tree]
+    return torch.as_tensor(np.array(tree), device=device)
 
 
 def to_numpy(tree):

@@ -1,8 +1,10 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
 
 Prefill + batched decode with the serving engine on random weights from a
-seed (``--smoke`` for the reduced config); ``--edge-host`` runs the Seeker
-HAR edge-host pipeline instead (the paper's system, §4).  Runs on CUDA
+seed (``--smoke`` for the reduced config; whisper's frames and qwen2-vl's
+patches are standard-normal draws, as the reference's stubs);
+``--edge-host`` runs the Seeker HAR edge-host pipeline instead (the
+paper's system, §4).  Runs on CUDA
 unless ``--device cpu`` is given, and raises when there is no card.
 """
 from __future__ import annotations
@@ -22,11 +24,13 @@ __all__ = ["serve", "main"]
 
 def serve(params: dict, cfg, prompt: torch.Tensor, max_new: int, *,
           temperature: float = 0.0, generator: torch.Generator | None = None,
-          device=None) -> dict:
+          device=None, cache_margin: int = 0, enc_frames=None,
+          patch_embeds=None) -> dict:
     """One ``generate`` call, timed on the host clock (synchronised on
     CUDA): the tokens (B, max_new), the prefill's ms (first token
     included), the ms of each later decode step, and tokens per second
-    over the whole call."""
+    over the whole call.  ``cache_margin``, ``enc_frames`` and
+    ``patch_embeds`` go to ``generate``."""
     dev = resolve_device(device)
     marks = []
 
@@ -37,7 +41,9 @@ def serve(params: dict, cfg, prompt: torch.Tensor, max_new: int, *,
 
     mark("start")
     tokens = generate(params, cfg, prompt, max_new, temperature=temperature,
-                      generator=generator, device=dev, on_phase=mark)
+                      generator=generator, device=dev,
+                      cache_margin=cache_margin, enc_frames=enc_frames,
+                      patch_embeds=patch_embeds, on_phase=mark)
     (_, t0), (_, t1), (_, t2) = marks
     return dict(tokens=tokens, prefill_ms=(t1 - t0) * 1e3,
                 decode_ms_per_step=(t2 - t1) * 1e3 / max(max_new - 1, 1),
@@ -89,10 +95,21 @@ def main(argv=None) -> dict | None:
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     g = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(g, cfg)
+    # the stubbed audio front-end's frames and vision tower's patches
+    extra = {}
+    if cfg.encoder_layers:
+        extra["enc_frames"] = torch.randn(
+            (args.batch, cfg.encoder_frames, cfg.d_model), generator=g,
+            device=dev).to(cfg.dtype)
+    if cfg.vision_patches:
+        extra["patch_embeds"] = torch.randn(
+            (args.batch, cfg.vision_patches, cfg.d_model), generator=g,
+            device=dev).to(cfg.dtype)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=g, device=dev)
     out = serve(params, cfg, prompt, args.max_new,
-                temperature=args.temperature, generator=g, device=dev)
+                temperature=args.temperature, generator=g, device=dev,
+                **extra)
     print(f"generated {tuple(out['tokens'].shape)}: prefill "
           f"{out['prefill_ms']:.2f} ms, decode {out['decode_ms_per_step']:.3f}"
           f" ms/step ({out['tokens_per_s']:.1f} tok/s) on {dev}")

@@ -30,7 +30,7 @@ def _forward_only(*xs: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
         raise NotImplementedError(
             "the flash attention backward walks come with training "
-            "(ROADMAP Queue 1 item 7); call under torch.no_grad()")
+            "(ROADMAP Queue 1 item 6.2); call under torch.no_grad()")
 
 
 def flash_causal_attention(q, k, v, chunk: int = 512,

@@ -1,12 +1,13 @@
-"""Shared transformer layers: norms, gated activations, RoPE, attention.
+"""Shared transformer layers: norms, gated activations, RoPE and M-RoPE,
+sinusoidal positions, attention.
 
-PyTorch counterpart of :mod:`repro.models.layers` for the attention-only
-decoders, in the same order of operations and dtypes: the norms and the
-softmax compute in float32, score tensors are taken to float32 after their
-matmul, and the probabilities are cast to the query's dtype before the PV
-product.  Attention comes in four execution shapes, chosen by the caller:
+PyTorch counterpart of :mod:`repro.models.layers`, in the same order of
+operations and dtypes: the norms and the softmax compute in float32, score
+tensors are taken to float32 after their matmul, and the probabilities are
+cast to the query's dtype before the PV product.  Attention comes in four execution shapes, chosen by the caller:
 
-* :func:`dense_attention`        — materialized scores; short sequences.
+* :func:`dense_attention`        — materialized scores, causal or not; short
+  sequences, the encoder and cross-attention.
 * :func:`pair_chunked_attention` — causal online softmax over the lower
   triangle of chunk pairs only (exact, about half the FLOPs of a full walk).
 * :func:`banded_attention`       — sliding-window attention over per-chunk
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 
 __all__ = [
     "rms_norm", "swiglu", "geglu", "rope_sincos", "apply_rope",
+    "mrope_sincos", "apply_mrope", "sinusoidal_positions", "sinusoidal_at",
     "dense_attention", "pair_chunked_attention", "banded_attention",
     "decode_attention", "NEG_INF",
 ]
@@ -54,15 +56,18 @@ def geglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 # Rotary embeddings
 # ---------------------------------------------------------------------------
 
+def _rope_freq(theta: float, half: int, device) -> torch.Tensor:
+    """``theta ** (-arange(half) / half)`` in float32."""
+    base = torch.full((), theta, dtype=torch.float32, device=device)
+    return base ** (-torch.arange(0, half, dtype=torch.float32,
+                                  device=device) / half)
+
+
 def rope_sincos(positions: torch.Tensor, head_dim: int,
                 theta: float) -> tuple[torch.Tensor, torch.Tensor]:
     """positions (..., S) -> sin/cos (..., S, head_dim//2), frequencies
     ``theta ** (-arange(half) / half)`` in float32."""
-    half = head_dim // 2
-    dev = positions.device
-    base = torch.full((), theta, dtype=torch.float32, device=dev)
-    freq = base ** (-torch.arange(0, half, dtype=torch.float32, device=dev)
-                    / half)
+    freq = _rope_freq(theta, head_dim // 2, positions.device)
     ang = positions.float()[..., None] * freq
     return torch.sin(ang), torch.cos(ang)
 
@@ -76,6 +81,54 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
     cos = cos[:, :, None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def mrope_sincos(positions: torch.Tensor, sections: tuple[int, ...],
+                 head_dim: int,
+                 theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL's multimodal RoPE tables: ``positions`` (3, B, S) carries
+    (temporal, h, w) ids, and ``sections`` split the half-dim's
+    frequencies among the three components (sum(sections) == head_dim //
+    2).  Returns sin/cos (B, S, head_dim//2) for :func:`apply_rope`."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to {half}")
+    freq = _rope_freq(theta, half, positions.device)
+    angs, lo = [], 0
+    for comp, sec in enumerate(sections):
+        angs.append(positions[comp].float()[..., None] * freq[lo:lo + sec])
+        lo += sec
+    ang = torch.cat(angs, dim=-1)
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: tuple[int, ...], theta: float) -> torch.Tensor:
+    """x (B, S, H, D) rotated by M-RoPE at ``positions`` (3, B, S)."""
+    return apply_rope(x, *mrope_sincos(positions, sections, x.shape[-1],
+                                       theta))
+
+
+def _sinusoid_freq(d: int, device) -> torch.Tensor:
+    half = d // 2
+    return torch.exp(-math.log(10000.0) * torch.arange(half, device=device)
+                     / (half - 1))
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embedding table (n, d), float32:
+    sin then cos of ``position * 10000 ** (-i / (d/2 - 1))``."""
+    freq = _sinusoid_freq(d, device)
+    ang = torch.arange(n, device=device)[:, None] * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """The sinusoidal embedding at ``positions`` (...,) -> (..., d),
+    float32; the decoder's absolute positions when RoPE is off
+    (whisper)."""
+    ang = positions.float()[..., None] * _sinusoid_freq(d, positions.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -97,9 +150,10 @@ def _pv(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int | None = None,
+                    causal: bool = True, window: int | None = None,
                     softcap: float = 0.0) -> torch.Tensor:
-    """Materialized-score causal attention.  q (B,S,G,R,D); k,v (B,T,G,D)."""
+    """Materialized-score attention, causal (query i sees keys <= i) or
+    not.  q (B,S,G,R,D); k,v (B,T,G,D)."""
     s, d = q.shape[1], q.shape[-1]
     t = k.shape[1]
     scale = 1.0 / math.sqrt(d)
@@ -109,10 +163,12 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scores = torch.tanh(scores / softcap) * softcap   # BEFORE masking
     qpos = torch.arange(s, device=q.device)
     kpos = torch.arange(t, device=q.device)
-    mask = qpos[:, None] >= kpos[None, :]
+    mask = qpos[:, None] >= kpos[None, :] if causal else None
     if window is not None:
-        mask &= (qpos[:, None] - kpos[None, :]) < window
-    scores = torch.where(mask, scores, NEG_INF)
+        near = (qpos[:, None] - kpos[None, :]) < window
+        mask = near if mask is None else mask & near
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return _pv(probs, v)
 

@@ -1,28 +1,30 @@
-"""Run-structured decoder LM: the decoders whose input is tokens alone.
+"""Run-structured LM covering all ten configs of the reference.
 
-PyTorch counterpart of :mod:`repro.models.transformer` for decoders whose
-layers are ``"attn"`` (global) and ``"local"`` (sliding-window) attention,
-``"rglru"`` (Griffin's recurrent block) and ``"ssd"`` (Mamba-2), with a
-dense or MoE FFN: tinyllama-1.1b, gemma-2b, yi-34b, gemma3-12b,
-recurrentgemma-2b, deepseek-moe-16b, grok-1-314b and mamba2-130m.  Layers
-are grouped into *runs* of consecutive identical (mixer, MoE) kinds
+PyTorch counterpart of :mod:`repro.models.transformer`: layers of
+``"attn"`` (global) and ``"local"`` (sliding-window) attention, ``"rglru"``
+(Griffin's recurrent block) and ``"ssd"`` (Mamba-2), with a dense or MoE
+FFN; whisper-small's encoder, cross-attention and sinusoidal positions;
+qwen2-vl-2b's M-RoPE over vision patches put before the text.  Layers are
+grouped into *runs* of consecutive identical (mixer, MoE) kinds
 (``pattern_runs``); each run's parameters are stacked with a leading layer
 dimension, in the reference's tree (``embed``, ``unembed``,
-``final_norm``, ``runs[i]`` with ``norm1``, the mixer's leaves, ``norm2``
-and ``mlp_*`` or the MoE leaves), and a run is a Python loop over that
-dimension.
+``final_norm``, ``runs[i]`` with ``norm1``, the mixer's leaves, ``xnorm``
+and ``xw*`` for cross-attention, ``norm2`` and ``mlp_*`` or the MoE
+leaves; ``encoder`` with its own ``runs`` and ``final_norm``), and a run
+is a Python loop over that dimension.
 
 * :func:`forward`     — full sequence; ``return_cache=True`` also builds the
   serving cache (prefill).
 * :func:`decode_step` — one token against the cache.
 * :func:`init_params` / :func:`model_param_shapes` / :func:`init_cache`.
 
-Configs with a part the port does not have yet (the Whisper encoder,
-M-RoPE with vision patches, sinusoidal positions) raise
-``NotImplementedError``.
+Whisper's encoder and qwen2-vl's vision tower are stubs in the reference:
+``forward`` takes their precomputed embeddings, ``enc_frames`` (B,
+encoder_frames, D) and ``patch_embeds`` (B, P, D).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, NamedTuple
 
@@ -32,33 +34,16 @@ import torch.nn.functional as F
 from .config import ModelConfig, pattern_runs
 from .flash import flash_banded_attention, flash_causal_attention
 from .layers import (apply_rope, banded_attention, decode_attention,
-                     dense_attention, geglu, pair_chunked_attention, rms_norm,
-                     rope_sincos, swiglu)
+                     dense_attention, geglu, mrope_sincos,
+                     pair_chunked_attention, rms_norm, rope_sincos,
+                     sinusoidal_at, sinusoidal_positions, swiglu)
 from .moe import moe_apply, moe_param_shapes
 from .rglru import (rglru_apply, rglru_decode_step, rglru_param_shapes,
                     rglru_state_shapes)
 from .ssd import ssd_apply, ssd_decode_step, ssd_param_shapes, ssd_state_shapes
 
 __all__ = ["PSpec", "model_param_shapes", "init_params", "compute_params",
-           "forward", "decode_step", "init_cache", "check_supported"]
-
-_PENDING = "ROADMAP Queue 1 item 7"
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first part of ``cfg`` the
-    port does not have yet."""
-    if cfg.encoder_layers:
-        missing = "the whisper encoder and cross-attention (encoder_layers)"
-    elif cfg.mrope_sections or cfg.vision_patches:
-        missing = "M-RoPE with vision patches (mrope_sections, vision_patches)"
-    elif cfg.rope_theta == 0:
-        missing = "sinusoidal positions (rope_theta=0)"
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: {missing} is not ported to repro_torch yet "
-        f"({_PENDING}); only decoders whose input is tokens alone run")
+           "forward", "decode_step", "init_cache", "build_mrope_positions"]
 
 
 class PSpec(NamedTuple):
@@ -94,32 +79,49 @@ _INIT = {"lam": "rglru_lam", "A_log": "ssm_A", "dt_bias": "ssm_dt",
          "D": "ones", "norm_scale": "zeros"}
 
 
-def _block_shapes(cfg: ModelConfig, kind: str,
-                  is_moe: bool) -> dict[str, PSpec]:
+def _attn_shapes(cfg: ModelConfig) -> dict[str, PSpec]:
     d, dh = cfg.d_model, cfg.head_dim
+    return {"wq": PSpec((d, cfg.n_heads, dh)), "wk": PSpec((d, cfg.n_kv, dh)),
+            "wv": PSpec((d, cfg.n_kv, dh)), "wo": PSpec((cfg.n_heads, dh, d))}
+
+
+def _block_shapes(cfg: ModelConfig, kind: str, is_moe: bool,
+                  cross: bool = False) -> dict[str, PSpec]:
+    d = cfg.d_model
     sh = {"norm1": PSpec((d,), "zeros")}
     if kind in ("attn", "local"):
-        sh.update({
-            "wq": PSpec((d, cfg.n_heads, dh)),
-            "wk": PSpec((d, cfg.n_kv, dh)),
-            "wv": PSpec((d, cfg.n_kv, dh)),
-            "wo": PSpec((cfg.n_heads, dh, d)),
-        })
+        sh.update(_attn_shapes(cfg))
     else:
         shapes = (rglru_param_shapes(cfg) if kind == "rglru"
                   else ssd_param_shapes(cfg))
         sh.update({k: PSpec(v, _INIT.get(k, "normal"))
                    for k, v in shapes.items()})
+    if cross:
+        sh["xnorm"] = PSpec((d,), "zeros")
+        sh.update({f"x{k}": v for k, v in _attn_shapes(cfg).items()})
     if cfg.mlp != "none" and kind != "ssd":
         sh["norm2"] = PSpec((d,), "zeros")
         sh.update(_mlp_shapes(cfg, is_moe))
     return sh
 
 
+def _stack(sh: dict[str, PSpec], n: int) -> dict[str, PSpec]:
+    return {k: PSpec((n,) + v.shape, v.init, True) for k, v in sh.items()}
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's config: ``cfg``'s widths (and head padding), full
+    multi-head attention, a gelu MLP, no MoE."""
+    return dataclasses.replace(
+        cfg, n_layers=cfg.encoder_layers, mlp="gelu", moe_layers=(),
+        block_pattern=("attn",) * cfg.encoder_layers, n_kv=cfg.n_heads)
+
+
 def model_param_shapes(cfg: ModelConfig) -> dict[str, Any]:
     """The parameter tree of ``cfg`` as :class:`PSpec` leaves, in the
-    reference's order (that of its ``init_params``)."""
-    check_supported(cfg)
+    reference's order (that of its ``init_params``): with an encoder,
+    every decoder layer also holds cross-attention leaves, and
+    ``encoder`` holds one stacked run and its ``final_norm``."""
     d = cfg.d_model
     tree: dict[str, Any] = {
         "embed": PSpec((cfg.padded_vocab, d)),
@@ -128,11 +130,25 @@ def model_param_shapes(cfg: ModelConfig) -> dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         tree["unembed"] = PSpec((d, cfg.padded_vocab))
+    cross = cfg.encoder_layers > 0
     for kind, is_moe, _start, length in pattern_runs(cfg):
-        tree["runs"].append({k: PSpec((length,) + v.shape, v.init, True)
-                             for k, v in _block_shapes(cfg, kind,
-                                                       is_moe).items()})
+        tree["runs"].append(_stack(_block_shapes(cfg, kind, is_moe, cross),
+                                   length))
+    if cfg.encoder_layers:
+        enc = _block_shapes(_encoder_cfg(cfg), "attn", False)
+        tree["encoder"] = {"runs": [_stack(enc, cfg.encoder_layers)],
+                           "final_norm": PSpec((d,), "zeros")}
     return tree
+
+
+def _map_tree(tree, fn, name: str = ""):
+    """``fn(name, leaf)`` over a tree of dicts and lists, ``name`` being the
+    leaf's dict key."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(v, fn, name) for v in tree]
+    return fn(name, tree)
 
 
 def _draw(generator: torch.Generator, init: str, shape: tuple,
@@ -182,12 +198,8 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> dict:
     laws (not its draws): normal / sqrt(fan_in) weights (an MoE leaf's
     fan-in counts its experts axis), zero norm scales, and the recurrent
     mixers' ``lam``, ``A_log``, ``dt_bias`` and ``D`` rules."""
-    tree = model_param_shapes(cfg)
-    out = {k: _init_leaf(generator, v, cfg) for k, v in tree.items()
-           if k != "runs"}
-    out["runs"] = [{k: _init_leaf(generator, v, cfg) for k, v in run.items()}
-                   for run in tree["runs"]]
-    return out
+    return _map_tree(model_param_shapes(cfg),
+                     lambda _, p: _init_leaf(generator, p, cfg))
 
 
 _READ_F32 = ("lam", "A_log", "dt_bias")
@@ -203,10 +215,7 @@ def compute_params(params: dict, cfg: ModelConfig, device=None) -> dict:
         keep = "norm" in name or name in _READ_F32
         return x.to(device=device, dtype=None if keep else cfg.dtype)
 
-    out = {k: cast(k, v) for k, v in params.items() if k != "runs"}
-    out["runs"] = [{k: cast(k, v) for k, v in run.items()}
-                   for run in params["runs"]]
-    return out
+    return _map_tree(params, cast)
 
 
 # ---------------------------------------------------------------------------
@@ -226,13 +235,16 @@ def _project_qkv(p: dict, h: torch.Tensor, wq: torch.Tensor):
 
 
 def _attn_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
-              rope: tuple[torch.Tensor, torch.Tensor] | None):
-    """Full-sequence causal attention mixer.  Returns (out, (k, v)).
+              rope: tuple[torch.Tensor, torch.Tensor] | None,
+              causal: bool = True):
+    """Full-sequence attention mixer, causal or not (the encoder's, which
+    always takes the dense attention).  ``rope`` is the RoPE or M-RoPE
+    sin/cos of the run, or None.  Returns (out, (k, v)).
 
     When ``cfg.head_pad_multiple`` pads the q-heads (gemma-2b 8 -> 16,
-    yi-34b 56 -> 64), wq/wo are zero-padded and KV is gather-expanded to
-    one stream per (padded) q-head, as in the reference: the padded heads'
-    zero wo rows keep the math exact."""
+    yi-34b 56 -> 64, whisper and qwen2-vl 12 -> 16), wq/wo are zero-padded
+    and KV is gather-expanded to one stream per (padded) q-head, as in the
+    reference: the padded heads' zero wo rows keep the math exact."""
     b, s, _ = x.shape
     hp = cfg.padded_heads
     expand = hp != cfg.n_heads
@@ -253,8 +265,11 @@ def _attn_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
         k_att, v_att = k, v
         q5 = q.reshape(b, s, cfg.n_kv, cfg.n_heads // cfg.n_kv, cfg.head_dim)
     window = cfg.window if kind == "local" else None
-    if s <= cfg.dense_attn_max_seq and (window is None
-                                        or not cfg.flash_attention):
+    if not causal:
+        out = dense_attention(q5, k_att, v_att, causal=False,
+                              softcap=cfg.attn_softcap)
+    elif s <= cfg.dense_attn_max_seq and (window is None
+                                          or not cfg.flash_attention):
         out = dense_attention(q5, k_att, v_att, window=window,
                               softcap=cfg.attn_softcap)
     elif window is not None:
@@ -279,6 +294,27 @@ def _attn_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
     return torch.einsum("bshk,hkd->bsd", out, wo.to(x.dtype)), (k, v)
 
 
+def _cross_attn(p: dict, x: torch.Tensor, enc_kv, cfg: ModelConfig):
+    """Cross-attention of x (B, S, D) to the encoder's K/V (B, Tf, G, Dh)
+    each, in the unpadded (G, rep) grouping."""
+    b, s, _ = x.shape
+    g, rep = cfg.n_kv, cfg.n_heads // cfg.n_kv
+    h = rms_norm(x, p["xnorm"], cfg.norm_eps)
+    q = torch.einsum("bsd,dhk->bshk", h, p["xwq"].to(x.dtype))
+    out = dense_attention(q.reshape(b, s, g, rep, cfg.head_dim), *enc_kv,
+                          causal=False, softcap=cfg.attn_softcap)
+    out = out.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    return torch.einsum("bshk,hkd->bsd", out, p["xwo"].to(x.dtype))
+
+
+def _enc_kv(p: dict, enc_out: torch.Tensor):
+    """A decoder layer's cross-attention K/V (B, Tf, G, Dh) of the
+    encoder's output."""
+    dt = enc_out.dtype
+    return (torch.einsum("btd,dgk->btgk", enc_out, p["xwk"].to(dt)),
+            torch.einsum("btd,dgk->btgk", enc_out, p["xwv"].to(dt)))
+
+
 def _mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
          is_moe: bool) -> torch.Tensor:
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
@@ -293,11 +329,15 @@ def _mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
-                 is_moe: bool, rope, want_state: bool = False):
-    """One layer; returns (x, aux): the attention's (k, v), or with
-    ``want_state`` a recurrent mixer's decode state (else None)."""
+                 is_moe: bool, rope, enc_out: torch.Tensor | None = None,
+                 causal: bool = True, want_state: bool = False):
+    """One layer; returns (x, aux): for attention a dict of its ``k``,
+    ``v`` and, with ``enc_out``, the cross-attention's ``xk``, ``xv``; for
+    a recurrent mixer its decode state with ``want_state`` (else None)."""
     if kind in ("attn", "local"):
-        mix, aux = _attn_mix(p, x, cfg, kind=kind, rope=rope)
+        mix, (k, v) = _attn_mix(p, x, cfg, kind=kind, rope=rope,
+                                causal=causal)
+        aux = {"k": k, "v": v}
     else:
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         if kind == "rglru":
@@ -306,6 +346,10 @@ def _block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
             out = ssd_apply(p, h, cfg, return_state=want_state)
         mix, aux = out if want_state else (out, None)
     x = x + mix
+    if enc_out is not None and "xnorm" in p:
+        enc_kv = _enc_kv(p, enc_out)
+        x = x + _cross_attn(p, x, enc_kv, cfg)
+        aux["xk"], aux["xv"] = enc_kv
     if cfg.mlp != "none" and kind != "ssd":
         x = x + _mlp(p, x, cfg, is_moe)
     return x, aux
@@ -317,12 +361,19 @@ def _run_theta(cfg: ModelConfig, kind: str) -> float:
     return cfg.rope_theta
 
 
-def _run_rope(cfg: ModelConfig, kind: str, positions: torch.Tensor):
-    """An attention run's RoPE sin/cos at ``positions`` (B, S), shared by
-    its layers (the reference computes the same values in each layer);
-    None for a recurrent run or without RoPE."""
+def _run_rope(cfg: ModelConfig, kind: str, positions: torch.Tensor,
+              mrope_positions: torch.Tensor | None = None):
+    """An attention run's RoPE sin/cos at ``positions`` (B, S), or its
+    M-RoPE sin/cos at ``mrope_positions`` (3, B, S) for an M-RoPE config,
+    shared by its layers (the reference computes the same values in each
+    layer); None for a recurrent run or without RoPE."""
     theta = _run_theta(cfg, kind)
-    if kind not in ("attn", "local") or theta <= 0:
+    if kind not in ("attn", "local"):
+        return None
+    if cfg.mrope_sections and mrope_positions is not None:
+        return mrope_sincos(mrope_positions, cfg.mrope_sections,
+                            cfg.head_dim, theta)
+    if theta <= 0:
         return None
     return rope_sincos(positions, cfg.head_dim, theta)
 
@@ -340,14 +391,34 @@ def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _embed_tokens(params: dict, cfg: ModelConfig,
-                  tokens: torch.Tensor) -> torch.Tensor:
+def build_mrope_positions(cfg: ModelConfig, batch: int, seq: int,
+                          device=None) -> torch.Tensor:
+    """(3, B, S) int64 M-RoPE ids: the ``cfg.vision_patches`` patches get a
+    (t=0, h, w) grid, the text runs on sequentially after the largest
+    patch coordinate (the Qwen2-VL scheme)."""
+    p = cfg.vision_patches
+    grid = max(int(math.sqrt(max(p, 1))), 1)
+    idx = torch.arange(seq, device=device)
+    is_text = idx >= p
+    text = idx - p + grid
+    pos = torch.stack([
+        torch.where(is_text, text, 0),
+        torch.where(is_text, text, torch.clamp(idx // grid, max=grid - 1)),
+        torch.where(is_text, text, idx % grid)])
+    return pos[:, None, :].expand(3, batch, seq)
+
+
+def _embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  positions: torch.Tensor | None = None) -> torch.Tensor:
     x = params["embed"][tokens].to(cfg.dtype)
     if cfg.embed_scale:
         # the factor is rounded to the compute dtype first, as in the
         # reference
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=cfg.dtype,
                            device=x.device)
+    if cfg.rope_theta == 0 and not cfg.mrope_sections and positions is not None:
+        # RoPE off (whisper): absolute sinusoidal position embeddings
+        x = x + sinusoidal_at(positions, cfg.d_model).to(cfg.dtype)
     return x
 
 
@@ -355,36 +426,72 @@ def _layer(p_run: dict, i: int) -> dict:
     return {k: v[i] for k, v in p_run.items()}
 
 
+def _encode(params: dict, cfg: ModelConfig,
+            enc_frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over precomputed frame embeddings (B, Tf, D):
+    the sinusoidal table added, the non-causal blocks, the final norm."""
+    enc_cfg = _encoder_cfg(cfg)
+    x = enc_frames.to(cfg.dtype)
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                 x.device).to(cfg.dtype)[None]
+    p_run = params["encoder"]["runs"][0]
+    for i in range(cfg.encoder_layers):
+        x, _ = _block_apply(_layer(p_run, i), x, enc_cfg, kind="attn",
+                            is_moe=False, rope=None, causal=False)
+    return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+
+
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            enc_frames: torch.Tensor | None = None,
+            patch_embeds: torch.Tensor | None = None,
+            positions: torch.Tensor | None = None,
             return_cache: bool = False, cache_len: int | None = None):
     """Full-sequence forward.
 
-    tokens: (B, S) integer ids.  Returns logits (B, S, padded_vocab) in
-    ``cfg.dtype``, or (logits, cache) with ``return_cache`` (prefill): the
-    cache holds ``cache_len`` (default S) positions per global run and
-    ``min(window, cache_len)`` per local run, in the ring layout
-    slot = position % width, each recurrent run's final states, and
-    ``pos`` = S.  An MoE config raises ``ValueError`` unless B*S is a
-    multiple of ``min(group_size, B*S)``, an SSD config unless S is a
-    multiple of ``min(128, S)``, as the reference asserts.
+    tokens: (B, S_text) integer ids.  With ``patch_embeds`` (B, P, D) the
+    sequence is the patches, then the text: S = P + S_text.  An encoder
+    config needs ``enc_frames`` (B, encoder_frames, D).  ``positions``
+    (B, S) defaults to 0..S-1; the text's part feeds the sinusoidal
+    embeddings and RoPE reads all of it (M-RoPE reads
+    :func:`build_mrope_positions`).  Returns logits (B, S, padded_vocab)
+    in ``cfg.dtype``, or (logits, cache) with ``return_cache`` (prefill):
+    the cache holds ``cache_len`` (default S) positions per global run and
+    ``min(window, cache_len)`` per local run, the last ones of the
+    sequence, each local run in the ring layout slot = position % width
+    (a global run's slots are not rolled, as in the reference), each
+    recurrent run's final states, with an encoder each layer's
+    cross-attention ``xk``/``xv`` and ``enc_out``, and ``pos`` = S.  An
+    MoE config raises ``ValueError`` unless B*S is a multiple of
+    ``min(group_size, B*S)``, an SSD config unless S is a multiple of
+    ``min(128, S)``, as the reference asserts.
     """
-    check_supported(cfg)
-    b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    x = _embed_tokens(params, cfg, tokens)
+    b, s_text = tokens.shape
+    s = s_text + (0 if patch_embeds is None else patch_embeds.shape[1])
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    x = _embed_tokens(params, cfg, tokens, positions[:, s - s_text:])
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(cfg.dtype), x], dim=1)
+    mpos = (build_mrope_positions(cfg, b, s, tokens.device)
+            if cfg.mrope_sections else None)
+    enc_out = None
+    if cfg.encoder_layers:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name} has an encoder: pass enc_frames")
+        enc_out = _encode(params, cfg, enc_frames)
     run_caches = []
     for run_idx, (kind, is_moe, _start, length) in enumerate(
             pattern_runs(cfg)):
         p_run = params["runs"][run_idx]
-        rope = _run_rope(cfg, kind, positions)
+        rope = _run_rope(cfg, kind, positions, mpos)
         auxs = []
         for i in range(length):
             x, aux = _block_apply(_layer(p_run, i), x, cfg, kind=kind,
-                                  is_moe=is_moe, rope=rope,
+                                  is_moe=is_moe, rope=rope, enc_out=enc_out,
                                   want_state=return_cache)
             if return_cache:
                 auxs.append(aux)
@@ -396,18 +503,21 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     if not return_cache:
         return logits
     pos = torch.full((), s, dtype=torch.int32, device=tokens.device)
-    return logits, {"pos": pos, "runs": run_caches}
+    cache = {"pos": pos, "runs": run_caches}
+    if enc_out is not None:
+        cache["enc_out"] = enc_out
+    return logits, cache
 
 
 def _prefill_run_cache(auxs: list, cfg: ModelConfig, kind: str,
                        cache_len: int, s: int) -> dict:
     """The decode cache of one run from its layers' prefill byproducts:
-    k/v (B, S, G, Dh) each for attention, the final states otherwise."""
+    k/v (B, S, G, Dh) each (and the cross-attention's xk/xv) for
+    attention, the final states otherwise."""
+    out = {name: torch.stack([a[name] for a in auxs]) for name in auxs[0]}
     if kind not in ("attn", "local"):
-        return {name: torch.stack([a[name] for a in auxs])
-                for name in auxs[0]}
-    k = torch.stack([a[0] for a in auxs])
-    v = torch.stack([a[1] for a in auxs])
+        return out
+    k, v = out["k"], out["v"]
     w = min(cfg.window, cache_len) if kind == "local" else cache_len
     if s >= w:
         k, v = k[:, :, s - w:], v[:, :, s - w:]
@@ -417,7 +527,8 @@ def _prefill_run_cache(auxs: list, cfg: ModelConfig, kind: str,
     else:
         k = F.pad(k, (0, 0, 0, 0, 0, w - s))
         v = F.pad(v, (0, 0, 0, 0, 0, w - s))
-    return {"k": k.contiguous(), "v": v.contiguous()}
+    out["k"], out["v"] = k.contiguous(), v.contiguous()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -429,7 +540,12 @@ def _run_cache_shapes(cfg: ModelConfig, kind: str, length: int, batch: int,
     if kind in ("attn", "local"):
         w = min(cfg.window, max_len) if kind == "local" else max_len
         shape = (length, batch, w, cfg.n_kv, cfg.head_dim)
-        return {"k": shape, "v": shape}
+        out = {"k": shape, "v": shape}
+        if cfg.encoder_layers:
+            cross = (length, batch, cfg.encoder_frames, cfg.n_kv,
+                     cfg.head_dim)
+            out.update(xk=cross, xv=cross)
+        return out
     base = (rglru_state_shapes(cfg, batch) if kind == "rglru"
             else ssd_state_shapes(cfg, batch))
     return {k: (length,) + v for k, v in base.items()}
@@ -438,15 +554,20 @@ def _run_cache_shapes(cfg: ModelConfig, kind: str, length: int, batch: int,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
     """An empty decode cache on ``device`` in ``cfg.dtype``: per attention
     run k/v (L, B, W, G, Dh) (W = ``max_len``, or ``min(window, max_len)``
-    for a local run), per recurrent run its zero states, and an int32
-    ``pos`` of 0."""
-    check_supported(cfg)
+    for a local run) and with an encoder xk/xv (L, B, encoder_frames, G,
+    Dh), per recurrent run its zero states, with an encoder ``enc_out``
+    (B, encoder_frames, D), and an int32 ``pos`` of 0."""
     runs = [{k: torch.zeros(v, dtype=cfg.dtype, device=device)
              for k, v in _run_cache_shapes(cfg, kind, length, batch,
                                            max_len).items()}
             for kind, _moe, _start, length in pattern_runs(cfg)]
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "runs": runs}
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=device),
+             "runs": runs}
+    if cfg.encoder_layers:
+        cache["enc_out"] = torch.zeros(
+            (batch, cfg.encoder_frames, cfg.d_model), dtype=cfg.dtype,
+            device=device)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -489,15 +610,21 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     """One decoding step.  tokens: (B, 1).  Returns (logits (B, 1, V),
     cache): the returned cache holds ``pos + 1`` and the same tensors, into
     which this step's keys and values, and the recurrent runs' new states,
-    were written in place."""
-    check_supported(cfg)
+    were written in place.  The token sits at position ``pos``: its
+    sinusoidal embedding, its RoPE, and for M-RoPE all three components
+    (the reference's decode step; its prefill gives text tokens other
+    M-RoPE ids, see :func:`build_mrope_positions`).  Cross-attention reads
+    the cached ``xk``/``xv``."""
     pos = cache["pos"]
-    x = _embed_tokens(params, cfg, tokens)
+    b = tokens.shape[0]
+    positions = pos.expand(b, 1)
+    x = _embed_tokens(params, cfg, tokens, positions)
+    cross = "enc_out" in cache
     for run_idx, (kind, is_moe, _start, length) in enumerate(
             pattern_runs(cfg)):
         p_run, c_run = params["runs"][run_idx], cache["runs"][run_idx]
         if kind in ("attn", "local"):
-            rope = _run_rope(cfg, kind, pos.expand(tokens.shape[0], 1))
+            rope = _run_rope(cfg, kind, positions, pos.expand(3, b, 1))
             w = c_run["k"].shape[2]
             slot = torch.remainder(pos, w).reshape(1).long()
             slot_pos = _slot_positions(pos, w)
@@ -517,6 +644,9 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                 for name, t in new.items():
                     state[name].copy_(t)
             x = x + mix
+            if cross and "xnorm" in p_l:
+                x = x + _cross_attn(p_l, x, (c_run["xk"][i], c_run["xv"][i]),
+                                    cfg)
             if cfg.mlp != "none" and kind != "ssd":
                 x = x + _mlp(p_l, x, cfg, is_moe)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

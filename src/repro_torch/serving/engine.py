@@ -57,11 +57,17 @@ def temperature_sample(logits: torch.Tensor, temperature: float = 0.8, *,
 def generate(params: dict, cfg: ModelConfig, prompt, max_new: int, *,
              temperature: float = 0.0, gumbel: torch.Tensor | None = None,
              generator: torch.Generator | None = None, device=None,
+             cache_margin: int = 0, enc_frames=None, patch_embeds=None,
              on_phase: Callable[[str], None] | None = None) -> torch.Tensor:
     """prompt (B, S) token ids -> (B, max_new) generated int32 tokens.
 
     The parameters are moved to ``device`` (CUDA by default; it raises
-    without one) and cast to ``cfg.dtype`` once, here.  With a temperature,
+    without one) and cast to ``cfg.dtype`` once, here.  ``enc_frames`` (B,
+    encoder_frames, D) feed an encoder config, ``patch_embeds`` (B, P, D)
+    go before the prompt.  The cache holds ``S + max_new + cache_margin``
+    positions, the reference's rule: the patches are not counted, so with
+    a margin under P the decode steps overwrite the first of them.  With a
+    temperature,
     ``gumbel`` (max_new, B, padded_vocab) holds each step's noise (the
     reference draws step 0 with its key and step t with
     ``jax.random.split(key, max_new - 1)[t - 1]``), or ``generator`` draws
@@ -86,8 +92,11 @@ def generate(params: dict, cfg: ModelConfig, prompt, max_new: int, *,
             logits, temperature, generator=generator,
             gumbel=None if gumbel is None else gumbel[t])
 
+    extra = {k: torch.as_tensor(v, device=dev) for k, v in (
+        ("enc_frames", enc_frames), ("patch_embeds", patch_embeds))
+        if v is not None}
     logits, cache = forward(params, cfg, prompt, return_cache=True,
-                            cache_len=s + max_new)
+                            cache_len=s + max_new + cache_margin, **extra)
     # the first generated token comes from the last prefill logit
     tokens = [sample(logits[:, -1], 0)]
     if on_phase is not None:

@@ -3,8 +3,8 @@ numpy inputs, on the CPU: the ten architecture configs, the layers
 (``rms_norm``, RoPE, the four attention shapes), the flash forward walks,
 ``forward`` on the dense, chunked and flash paths, prefill-then-decode with
 linear and ring caches, ``generate`` (greedy, and temperature sampling with
-JAX's Gumbel draws injected), the serve launcher, and the configs the port
-does not run yet.
+JAX's Gumbel draws injected) and the serve launcher.  The whisper and
+qwen2-vl paths are held in tests/test_torch_lm_multimodal.py.
 
 Parameters in the layout of JAX's ``init_params``, drawn with numpy,
 reach JAX as arrays and the port through ``convert.lm_params``.  Float
@@ -47,10 +47,9 @@ _j_decode_step = jax.jit(j_decode_step, static_argnums=1)
 REPO = Path(__file__).resolve().parent.parent
 TOL = dict(rtol=1e-5, atol=1e-5)
 # the attention decoders (the MoE, RG-LRU and SSD configs are held in
-# tests/test_torch_lm_mixers.py), and the configs the port does not run yet
-# with the part each one's error message names
+# tests/test_torch_lm_mixers.py, whisper and qwen2-vl in
+# tests/test_torch_lm_multimodal.py)
 PORTED = ("tinyllama-1.1b", "gemma-2b", "yi-34b", "gemma3-12b")
-UNPORTED = {"whisper-small": "whisper encoder", "qwen2-vl-2b": "M-RoPE"}
 
 
 def _close(got, want, **tol):
@@ -447,7 +446,9 @@ def test_generate_temperature_with_jax_gumbel_draws():
 
 
 @pytest.mark.parametrize("extra", [[], ["--temperature", "0.8"],
-                                   ["--edge-host"]])
+                                   ["--edge-host"],
+                                   ["--arch", "whisper-small"],
+                                   ["--arch", "qwen2-vl-2b"]])
 def test_serve_launcher_runs_on_the_cpu(extra, capsys):
     out = tserve.main(["--arch", "tinyllama-1.1b", "--smoke", "--device",
                        "cpu", "--batch", "2", "--prompt-len", "8",
@@ -463,18 +464,6 @@ def test_serve_launcher_runs_on_the_cpu(extra, capsys):
     assert "generated (2, 4)" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_mixers_raise(arch):
-    cfg = tconfigs.get_smoke(arch)
-    msg = f"{UNPORTED[arch]}.*ROADMAP Queue 1 item 7"
-    with pytest.raises(NotImplementedError, match=msg):
-        tt.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match=msg):
-        tt.forward({}, cfg, torch.zeros((1, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match=msg):
-        tt.init_cache(cfg, 1, 8, "cpu")
-
-
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = _smoke("tinyllama-1.1b")
@@ -488,13 +477,17 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 def test_importing_the_lm_port_leaves_jax_out():
     code = ("import sys; import repro_torch.models, repro_torch.configs, "
             "repro_torch.models.moe, repro_torch.models.rglru, "
-            "repro_torch.models.ssd, "
+            "repro_torch.models.ssd, repro_torch.configs.whisper_small, "
+            "repro_torch.configs.qwen2_vl_2b, "
             "repro_torch.serving.engine, repro_torch.launch.serve; "
             "[repro_torch.configs.get_config(a) for a in "
             "repro_torch.configs.ARCHS]; "
+            "[repro_torch.launch.serve.main(['--arch', a, '--smoke', "
+            "'--device', 'cpu', '--batch', '1', '--prompt-len', '4', "
+            "'--max-new', '2']) for a in ('whisper-small', 'qwen2-vl-2b')]; "
             "print('jax' in sys.modules, 'repro' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True,
                          env={"PYTHONPATH": str(REPO / "src"),
                               "PATH": "/usr/bin:/bin"})
-    assert out.stdout.split() == ["False", "False"]
+    assert out.stdout.split()[-2:] == ["False", "False"]
