@@ -159,16 +159,43 @@ Phases (any failure exits non-zero and prints no result):
    other ids than its forward), each within ``BF16_RMS`` and
    ``BF16_MAX``, with the greedy agreement, the CPU cut after all 64
    patches;
-14. the kernel table as one JSON line (each kernel's launches on every
+14. the LM training path (bf16 GEMMs reducing in float32): (a)
+   tinyllama-1.1b's full config (float32 masters from a seed, bf16
+   compute, ``remat="full"``) through ``make_train_step`` and
+   ``run_training`` on ``lm_batches`` at batch 8 and 4096 tokens (past
+   the dense limit: every layer walks the flash causal walk forward, in
+   the remat recompute and backward), one warm-up step and 4 timed, with
+   step ms, tokens/s, peak device memory, each step's loss and grad norm
+   (finite), the synchronisations of a step, device busy, idle share and
+   launches of a step (``torch.profiler``) and the step's bound; (b) the
+   full model's first step in bf16 against float32 (|loss difference| at
+   most ``TRAIN_BF16_LOSS``, the gradient's cosine at least
+   ``TRAIN_BF16_COS``), and the first 2 layers at full width in float32,
+   one train step on the card against the CPU; (c) both walks' forward
+   and backward at phase 11's shapes, dq, dk and dv against autograd
+   through the dense attention within 1e-4, timed beside
+   ``scaled_dot_product_attention``'s forward and backward; (d) on the
+   2-layer cut, 8 steps checkpointed every 4 and preempted at step 6,
+   bitwise equal to an uninterrupted run, and the rf harvest gating the
+   steps; (e) the coreset-compressed step at world size 1 on NCCL on the
+   full model, and on the 2-layer cut as 2 gloo ranks sharing the card
+   (the script starts itself as ``chip_smoke.py --train-rank R 2 STORE
+   OUT DEVICE``), both ranks' states bitwise equal after each step.  The
+   four hand kernels are not on this path: their launches on every
+   training path must be 0;
+15. the kernel table as one JSON line (each kernel's launches on every
    path, ``per_sensor_oracle``, ``bearing_step``, ``codecs``, ``lm_serve``,
-   the ``lm_mixers_*`` and the ``lm_multimodal_*`` cells among them), then
-   the result line.
+   the ``lm_mixers_*``, ``lm_multimodal_*`` and ``lm_train*`` cells among
+   them), then the result line.
 
 ``python3 chip_smoke.py --bf16-drift [ARCH ...]`` runs, on the CPU, the
-estimate phase 12's bfloat16 bounds were set from (``bf16_drift``).
+estimate phase 12's bfloat16 bounds were set from (``bf16_drift``), and
+``python3 chip_smoke.py --train-drift [LAYERS ...]`` the one phase 14's
+were set from (``train_drift``).
 """
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -228,6 +255,25 @@ REC_RMS, REC_MAX = 0.15, 1.0
 # with a cache margin of 64 so that no patch is evicted; 64 new tokens each;
 # each cut to 2 layers (and 2 encoder layers) for the card against the CPU
 MM_NEW, WHISPER_PROMPT, QWEN_PROMPT, QWEN_MARGIN = 64, 64, 512, 64
+# phase 14: the LM training path; tinyllama-1.1b's full config at batch 8
+# and SHAPES["train_4k"]'s 4096 tokens (its global batch of 256 cut to 8),
+# one warm-up step and 4 timed; its 2-layer cut at full width (card against
+# CPU, fault tolerance, two gloo ranks) at batch 1 a rank and 512 tokens
+# past a dense limit of 256, so that the flash causal walk runs there too
+TRAIN_BATCH, TRAIN_STEPS = 8, 5
+TRAIN_CUT_LAYERS, TRAIN_CUT_SEQ, TRAIN_CUT_CHUNK = 2, 512, 256
+TRAIN_FT_STEPS, TRAIN_FT_EVERY, TRAIN_FT_PREEMPT = 8, 4, (6,)
+TRAIN_BUDGET_COST = 25.0       # µJ a step: some rf steps defer
+TRAIN_RANKS, TRAIN_RANK_STEPS = 2, 2
+# bounds set before the first chip run: the bf16 step against float32 on
+# the full model (|loss difference|, and the cosine of the whole gradient),
+# from ``chip_smoke.py --train-drift``'s CPU estimate at full width and cut
+# depth (PERF.md §6); the card against the CPU in float32 (largest
+# gradient difference over its leaf's std, relative loss difference); the
+# walks' float32 gradients against the dense attention's
+TRAIN_BF16_LOSS, TRAIN_BF16_COS = 0.01, 0.999
+TRAIN_CPU_GRAD, TRAIN_CPU_LOSS = 1e-3, 1e-5
+WALK_GRAD_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 on the tensor cores
@@ -3131,6 +3177,636 @@ def phase_lm_multimodal(torch, dev) -> dict:
     return out
 
 
+def _train_cut(cfg, dtype=None):
+    """``cfg`` cut to its first ``TRAIN_CUT_LAYERS`` layers, with the dense
+    limit under ``TRAIN_CUT_SEQ`` so that the flash causal walk runs (and
+    ``dtype`` for its compute, where given)."""
+    import dataclasses
+    cut = dataclasses.replace(_cut_cfg(cfg, TRAIN_CUT_LAYERS),
+                              dense_attn_max_seq=TRAIN_CUT_CHUNK,
+                              attn_chunk=TRAIN_CUT_CHUNK)
+    return cut if dtype is None else dataclasses.replace(cut, dtype=dtype)
+
+
+def _train_bounds(cfg, batch: int, seq: int) -> dict:
+    """The least time of a train step: its inputs (the float32 parameters
+    and both moments) read once and its outputs written once; the matmuls'
+    operations 8·N·T (forward, the remat recompute, a backward of twice
+    the forward; N the matmul parameters, the embedding gather left out)
+    and the causal attention's four products a forward, four again in the
+    recompute and eight in the backward, at the bf16 tensor-core peak."""
+    n_all = cfg.param_count()
+    matmul = cfg.active_param_count() - (0 if cfg.tie_embeddings
+                                         else cfg.vocab * cfg.d_model)
+    tokens = batch * seq
+    attn = 16 * batch * cfg.n_heads * cfg.head_dim * _attended(seq, None) \
+        * cfg.n_layers
+    flops = 8 * matmul * tokens + attn
+    nbytes = 24 * n_all          # params, m, v in float32, read and written
+    bound, by = _bound_ms(nbytes, flops, BF16_FLOPS)
+    return dict(bound_ms=bound, bound_by=by, operations=flops,
+                state_bytes=nbytes, matmul_params=matmul)
+
+
+def _launches_zero(launches: dict, what: str) -> dict:
+    assert not any(launches.values()), (what, launches)
+    return launches
+
+
+def _tree_cos(a, b) -> tuple[float, float]:
+    """The cosine of two gradient trees as whole vectors (float64 sums),
+    and the smallest cosine of one leaf."""
+    from repro_torch.tree import leaves
+    dot = na = nb = 0.0
+    worst = 1.0
+    for x, y in zip(leaves(a), leaves(b)):
+        x, y = x.double(), y.double()
+        d, sx, sy = float((x * y).sum()), float((x * x).sum()), float(
+            (y * y).sum())
+        dot, na, nb = dot + d, na + sx, nb + sy
+        if sx > 0 and sy > 0:
+            worst = min(worst, d / (sx * sy) ** 0.5)
+    return dot / (na * nb) ** 0.5, worst
+
+
+def _train_bf16_vs_f32(torch, cfg, params, batch) -> dict:
+    """Phase 14 (b): the full model's first step, its loss and gradient in
+    bf16 (``cfg``'s compute) against float32 on the same masters and
+    batch."""
+    import dataclasses
+    from repro_torch.train import make_loss_fn, value_and_grad
+
+    t0 = time.perf_counter()
+    l16, _, g16 = value_and_grad(make_loss_fn(cfg), params, batch)
+    torch.cuda.synchronize()
+    secs16 = time.perf_counter() - t0
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    t0 = time.perf_counter()
+    l32, _, g32 = value_and_grad(make_loss_fn(cfg32), params, batch)
+    torch.cuda.synchronize()
+    secs32 = time.perf_counter() - t0
+    cos, worst = _tree_cos(g16, g32)
+    dl = abs(float(l16) - float(l32))
+    print(f"  (b) full model, first step, bf16 against float32: loss "
+          f"{float(l16):.6f} / {float(l32):.6f}, |difference| {dl:.4g} "
+          f"(bound {TRAIN_BF16_LOSS}); gradient cosine {cos:.6f} (bound "
+          f"{TRAIN_BF16_COS}), smallest leaf cosine {worst:.6f}; loss and "
+          f"grads {secs16:.2f} s in bf16, {secs32:.2f} s in float32")
+    assert dl <= TRAIN_BF16_LOSS, dl
+    assert cos >= TRAIN_BF16_COS, cos
+    return dict(loss_bf16=float(l16), loss_f32=float(l32), loss_diff=dl,
+                grad_cos=cos, min_leaf_cos=worst, seconds_bf16=secs16,
+                seconds_f32=secs32)
+
+
+def _train_main(torch, dev, cfg, hyper, task, state, first_loss) -> dict:
+    """Phase 14 (a): ``make_train_step`` through ``run_training``, one
+    warm-up step and the rest timed on the host clock (each step ends at
+    the log step's read of its metrics), launches of the four kernels,
+    peak memory, then one more step each for the synchronisations and
+    the profile."""
+    from repro_torch.data.lm import lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.train import (TrainLoopConfig, make_train_step,
+                                   run_training)
+
+    step = make_train_step(cfg, hyper)
+    marks = []
+
+    def batch_fn(s):
+        marks.append(time.perf_counter())
+        return lm_batches(task, s, device=dev)
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, log = run_training(state, step, batch_fn,
+                              TrainLoopConfig(total_steps=TRAIN_STEPS,
+                                              log_every=1))
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    launches = _launches_zero(ops.launch_counts(), "lm_train")
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in log]
+    norms = [m["grad_norm"] for m in log]
+    assert len(losses) == TRAIN_STEPS, log
+    assert all(math.isfinite(x) for x in losses + norms), log
+    assert losses[0] == first_loss, (losses[0], first_loss)
+    step_s = [b - a for a, b in zip(marks[1:-1], marks[2:])]
+    step_ms = sum(step_s) / len(step_s) * 1e3
+    tokens = task.batch * task.seq_len
+    batch = lm_batches(task, TRAIN_STEPS, device=dev)
+    syncs, sync_secs = _count_syncs(torch, lambda: step(state, batch))
+    profile = _profile(torch, lambda: step(state, batch), 1, step_ms / 1e3,
+                       "lm_train_step")
+    out = dict(steps=TRAIN_STEPS, timed_steps=len(step_s), batch=task.batch,
+               seq=task.seq_len, step_ms=step_ms,
+               step_ms_each=[x * 1e3 for x in step_s],
+               warmup_step_ms=(marks[1] - marks[0]) * 1e3,
+               tokens_per_s=tokens / (step_ms / 1e3), losses=losses,
+               grad_norms=norms, lrs=[m["lr"] for m in log],
+               peak_memory_gb=peak / 1e9, resident_before_gb=resident / 1e9,
+               launches=launches, syncs_per_step=syncs,
+               sync_run_ms=sync_secs * 1e3, profile=profile,
+               wall_seconds=marks[-1] - t0,
+               **_train_bounds(cfg, task.batch, task.seq_len))
+    print(f"  (a) tinyllama-1.1b train step, batch {task.batch} x "
+          f"{task.seq_len}: {step_ms:.1f} ms/step over {len(step_s)} steps "
+          f"(warm-up {out['warmup_step_ms']:.1f} ms), {out['tokens_per_s']:.0f}"
+          f" tokens/s; bound {out['bound_ms']:.1f} ms ({out['bound_by']}, "
+          f"{out['operations']:.4g} operations); peak memory "
+          f"{out['peak_memory_gb']:.3f} GB ({out['resident_before_gb']:.3f} "
+          f"GB resident before); {syncs} synchronisations in a step; losses "
+          f"{[round(x, 5) for x in losses]}, grad norms "
+          f"{[round(x, 5) for x in norms]}; hand-kernel launches {launches}")
+    return out
+
+
+def _train_walk(torch, dev, walk, dense, library, shape_q, shape_kv,
+                attended: int, what: str) -> dict:
+    """Phase 14 (c): a flash walk's forward and backward on random float32
+    inputs: dq, dk and dv against autograd through the materialized-score
+    attention within ``WALK_GRAD_TOL``, and the device time of a forward
+    and backward of the walk, of the dense attention and of
+    ``scaled_dot_product_attention`` (the library call), with the bound
+    (two products forward, four backward)."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    q = torch.randn(shape_q, generator=g, device=dev)
+    k, v = (torch.randn(shape_kv, generator=g, device=dev) for _ in range(2))
+    dout = torch.randn(shape_q, generator=g, device=dev)
+
+    def grads(fn):
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        fn(*xs).backward(dout)
+        return [x.grad for x in xs]
+
+    got, want = grads(walk), grads(dense)
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    lib_errs = [float((a - b).abs().max())
+                for a, b in zip(got, grads(library))]
+    print(f"  (c) {what}: dq, dk, dv against autograd through the dense "
+          f"attention max |difference| {[f'{e:.3g}' for e in errs]} (bound "
+          f"{WALK_GRAD_TOL}); against the library call "
+          f"{[f'{e:.3g}' for e in lib_errs]}")
+    assert max(errs) <= WALK_GRAD_TOL, (what, errs)
+    hd = shape_q[2] * shape_q[3] * shape_q[4]
+    # forward: q, k, v read, out written; backward: q, k, v, out, dout
+    # read, dq, dk, dv written
+    bound, by = _bound_ms(4 * 6 * (q.numel() + k.numel()),
+                          12 * hd * attended)
+    row = dict(max_abs_err=max(errs), grad_errs=errs,
+               library_grad_errs=lib_errs,
+               ms=_time_ms(torch, lambda: grads(walk), reps=3, warmup=1),
+               plain_ms=_time_ms(torch, lambda: grads(dense), reps=3,
+                                 warmup=1),
+               library_ms=_time_ms(torch, lambda: grads(library), reps=10),
+               bound_ms=bound, bound_by=by)
+    print(f"    forward+backward ms (CUDA events): flash {row['ms']:.3f}, "
+          f"dense {row['plain_ms']:.3f}, library {row['library_ms']:.3f}; "
+          f"bound {bound:.3f} ({by}, float32)")
+    return row
+
+
+def _train_walks(torch, dev, cfg) -> dict:
+    """Phase 14 (c): both walks at phase 11's shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    from repro_torch.models.flash import (flash_banded_attention,
+                                          flash_causal_attention)
+
+    s, c, h, dh = LM_FLASH_PROMPT, LM_CHUNK, cfg.n_heads, cfg.head_dim
+    out = {"causal": _train_walk(
+        torch, dev, lambda q, k, v: flash_causal_attention(q, k, v, c),
+        lambda q, k, v: layers.dense_attention(q, k, v),
+        lambda q, k, v: _sdpa(torch, q, k, v),
+        (1, s, cfg.n_kv, h // cfg.n_kv, dh), (1, s, cfg.n_kv, dh),
+        _attended(s, None), f"flash_causal_attention (1, {s}, {cfg.n_kv}, "
+        f"{h // cfg.n_kv}, {dh}), chunk {c}")}
+    g3 = get_config("gemma3-12b")
+    s, w, h, dh = GEMMA3_PROMPT, g3.window, g3.n_heads, g3.head_dim
+    idx = torch.arange(s, device=dev)
+    band = (idx[:, None] >= idx[None, :]) & (idx[:, None] - idx[None, :] < w)
+    out["banded"] = _train_walk(
+        torch, dev, lambda q, k, v: flash_banded_attention(q, k, v, w, c),
+        lambda q, k, v: layers.dense_attention(q, k, v, window=w),
+        lambda q, k, v: _sdpa(torch, q, k, v, band),
+        (1, s, g3.n_kv, h // g3.n_kv, dh), (1, s, g3.n_kv, dh),
+        _attended(s, w), f"flash_banded_attention (1, {s}, {g3.n_kv}, "
+        f"{h // g3.n_kv}, {dh}), window {w}, chunk {c}")
+    return out
+
+
+def _rel_max(got, want) -> float:
+    """The largest |got - want| over ``want``'s std, leaf by leaf, the
+    largest of all leaves."""
+    from repro_torch.tree import leaves
+    worst = 0.0
+    for a, b in zip(leaves(got), leaves(want)):
+        std = float(b.float().std()) if b.numel() > 1 else float(b.abs())
+        worst = max(worst, float((a.cpu() - b).abs().max()) / max(std, 1e-30))
+    return worst
+
+
+def _train_card_vs_cpu(torch, dev, cut, params, hyper, task) -> dict:
+    """Phase 14 (b): the 2-layer cut at full width in float32, one train
+    step and its gradient on the card against the same on the CPU."""
+    from repro_torch.data.lm import lm_batches
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_loss_fn, make_train_step, value_and_grad
+    from repro_torch.tree import tree_map
+
+    def run(p, d):
+        batch = lm_batches(task, 0, device=d)
+        loss, _, grads = value_and_grad(make_loss_fn(cut), p, batch)
+        state = {"params": p, "opt": adamw_init(p, hyper.opt)}
+        _, met = make_train_step(cut, hyper)(state, batch)
+        assert float(met["loss"]) == float(loss)
+        return float(loss), float(met["grad_norm"]), grads
+
+    card = run(params, dev)
+    t0 = time.perf_counter()
+    cpu = run(tree_map(lambda x: x.cpu(), params), torch.device("cpu"))
+    cpu_secs = time.perf_counter() - t0
+    dl = abs(card[0] - cpu[0]) / abs(cpu[0])
+    dn = abs(card[1] - cpu[1]) / abs(cpu[1])
+    dg = _rel_max(card[2], cpu[2])
+    print(f"  (b) {TRAIN_CUT_LAYERS} layers at full width, float32, batch "
+          f"{task.batch} x {task.seq_len}, one train step, the card against "
+          f"the CPU ({cpu_secs:.1f} s): loss {card[0]:.6f} / {cpu[0]:.6f} "
+          f"(relative {dl:.3g}, bound {TRAIN_CPU_LOSS}), grad norm relative "
+          f"{dn:.3g}, largest grad difference over its leaf's std "
+          f"{dg:.3g} (bound {TRAIN_CPU_GRAD})")
+    assert dl <= TRAIN_CPU_LOSS and dn <= TRAIN_CPU_LOSS, (dl, dn)
+    assert dg <= TRAIN_CPU_GRAD, dg
+    return dict(loss=card[0], cpu_loss=cpu[0], loss_rel=dl,
+                grad_norm_rel=dn, grad_max_over_std=dg, cpu_seconds=cpu_secs)
+
+
+def _train_fault(torch, dev, cut, hyper, task) -> dict:
+    """Phase 14 (d): on the 2-layer cut, ``run_training`` preempted at
+    step 6 and restored from its step-4 checkpoint against an
+    uninterrupted run (final states bitwise equal), and the rf budget
+    gating the steps."""
+    import shutil
+    from repro_torch.data.lm import lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.train import (TrainLoopConfig, init_train_state,
+                                   make_train_step, run_training)
+    from repro_torch.tree import leaves_with_paths, path_name
+
+    root = REPO / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    state0 = init_train_state(torch.Generator(device=dev).manual_seed(27),
+                              cut, hyper)
+    step = make_train_step(cut, hyper)
+
+    def batch_fn(s):
+        return lm_batches(task, s, device=dev)
+
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        crash, log = run_training(state0, step, batch_fn, TrainLoopConfig(
+            total_steps=TRAIN_FT_STEPS, ckpt_dir=str(root),
+            ckpt_every=TRAIN_FT_EVERY, log_every=1,
+            preempt_at=TRAIN_FT_PREEMPT))
+        torch.cuda.synchronize()
+        crash_secs = time.perf_counter() - t0
+        launches = _launches_zero(ops.launch_counts(), "lm_train_ft")
+        ckpt_gb = sum(f.stat().st_size for f in
+                      (root / f"step_{TRAIN_FT_STEPS:010d}").iterdir()) / 1e9
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    clean, _ = run_training(state0, step, batch_fn, TrainLoopConfig(
+        total_steps=TRAIN_FT_STEPS, log_every=1))
+    torch.cuda.synchronize()
+    clean_secs = time.perf_counter() - t0
+    events = [(m["event"], m.get("step")) for m in log if "event" in m]
+    assert events == [("preempted", None), ("resume", TRAIN_FT_EVERY)], events
+    worst, at = 0.0, None
+    for (path, a), (_, b) in zip(leaves_with_paths(crash),
+                                 leaves_with_paths(clean)):
+        if not torch.equal(a, b):
+            d = float((a.double() - b.double()).abs().max())
+            if d >= worst:
+                worst, at = d, path_name(path)
+    print(f"  (d) {TRAIN_CUT_LAYERS}-layer cut, {TRAIN_FT_STEPS} steps, "
+          f"checkpoints every {TRAIN_FT_EVERY} ({ckpt_gb:.3f} GB each), "
+          f"preempted at {TRAIN_FT_PREEMPT}: events {events}; final state "
+          f"against the uninterrupted run: "
+          f"{'bitwise equal' if at is None else f'largest difference {worst:.3g} at {at}'}"
+          f"; {crash_secs:.1f} s with the restart and checkpoints, "
+          f"{clean_secs:.1f} s uninterrupted")
+    assert at is None, (worst, at)
+    _, blog = run_training(state0, step, batch_fn, TrainLoopConfig(
+        total_steps=TRAIN_FT_STEPS, log_every=1, budget_source="rf",
+        budget_cost_uj=TRAIN_BUDGET_COST))
+    deferred = [m["step"] for m in blog if m.get("deferred")]
+    ran = [m["step"] for m in blog if "loss" in m]
+    assert deferred and ran and sorted(deferred + ran) == list(
+        range(TRAIN_FT_STEPS)), blog
+    assert all(math.isfinite(m["loss"]) for m in blog if "loss" in m)
+    print(f"  (d) rf budget at {TRAIN_BUDGET_COST} µJ a step: steps "
+          f"{deferred} deferred, {ran} ran")
+    return dict(events=events, bitwise_equal=at is None, launches=launches,
+                checkpoint_gb=ckpt_gb, crash_run_seconds=crash_secs,
+                clean_run_seconds=clean_secs, budget_deferred=deferred,
+                budget_ran=ran)
+
+
+def _payload_bytes(cfg_c, params) -> dict:
+    """What one rank puts on the wire in a compressed step (a kept entry's
+    bf16 value and int32 index; a small leaf whole in float32), against the
+    bf16 dense gradient and the two wire-byte formulas at 2 ranks."""
+    from repro_torch.core.compression import (wire_bytes_dense_psum,
+                                              wire_bytes_topk_allgather)
+    from repro_torch.tree import leaves
+    payload = n = 0
+    for p in leaves(params):
+        n += p.numel()
+        if p.numel() < cfg_c.min_size:
+            payload += 4 * p.numel()
+        else:
+            payload += 6 * max(1, int(p.numel() * cfg_c.topk_ratio))
+    return dict(payload_bytes=payload, dense_bf16_bytes=2 * n,
+                payload_share=payload / (2 * n),
+                wire_bytes_dense_psum_2=wire_bytes_dense_psum(n, 2),
+                wire_bytes_topk_allgather_2=wire_bytes_topk_allgather(
+                    n, 2, cfg_c.topk_ratio))
+
+
+def _train_compressed(torch, dev, cfg, hyper, task) -> dict:
+    """Phase 14 (e): the compressed step at world size 1 on NCCL with the
+    full model and ``CompressionConfig()`` (top-k 1/64, error feedback):
+    one warm-up step and two timed."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.data.lm import lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.train import init_train_state, make_compressed_train_step
+    from repro_torch.tree import leaves
+
+    store = REPO / "build" / "train_store"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store / "nccl"),
+                                                         1),
+                            rank=0, world_size=1)
+    try:
+        cc = CompressionConfig()
+        state = init_train_state(torch.Generator(device=dev).manual_seed(28),
+                                 cfg, hyper, cc)
+        step = make_compressed_train_step(cfg, hyper, cc, dist.group.WORLD)
+        ops.reset_launch_counts()
+        mets, marks = [], [time.perf_counter()]
+        for i in range(3):
+            state, met = step(state, lm_batches(task, i, device=dev))
+            mets.append({k: float(v) for k, v in met.items()})
+            marks.append(time.perf_counter())
+        launches = _launches_zero(ops.launch_counts(),
+                                  "lm_train_compressed")
+        ef = sum(float(x.float().square().sum())
+                 for x in leaves(state["ef"])) ** 0.5
+        wire = _payload_bytes(cc, state["params"])
+    finally:
+        dist.destroy_process_group()
+    step_ms = (marks[-1] - marks[1]) / 2 * 1e3
+    assert all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in mets), mets
+    print(f"  (e) compressed step, world size 1 on NCCL, full model, top-k "
+          f"1/64 with error feedback: {step_ms:.1f} ms/step (warm-up "
+          f"{(marks[1] - marks[0]) * 1e3:.1f}); losses "
+          f"{[round(m['loss'], 5) for m in mets]}, grad norms "
+          f"{[round(m['grad_norm'], 5) for m in mets]}; residual norm "
+          f"{ef:.4g}; payload {wire['payload_bytes'] / 1e6:.2f} MB a rank "
+          f"against {wire['dense_bf16_bytes'] / 1e6:.2f} MB dense bf16 "
+          f"({wire['payload_share']:.4f}); launches {launches}")
+    return dict(step_ms=step_ms, warmup_step_ms=(marks[1] - marks[0]) * 1e3,
+                metrics=mets, residual_norm=ef, launches=launches, **wire)
+
+
+def _train_rank(argv) -> int:
+    """One of phase 14 (e)'s gloo ranks sharing the card (started by
+    :func:`_train_gloo` as ``chip_smoke.py --train-rank R WORLD STORE
+    OUT DEVICE``): the compressed step on the 2-layer cut over the global
+    batch on DEVICE, each step's parameter hashes and metrics written to
+    OUT (JSON)."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    rank, world, store, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    dev = torch.device(argv[4])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.data.lm import LMTask, lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.train import (TrainHyper, init_train_state,
+                                   make_compressed_train_step)
+    from repro_torch.tree import leaves_with_paths, path_name
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        cut = _train_cut(get_config("tinyllama-1.1b"))
+        hyper = TrainHyper(peak_lr=3e-4, warmup=1, total_steps=10)
+        task = LMTask(vocab=cut.vocab, seq_len=TRAIN_CUT_SEQ, batch=world)
+        cc = CompressionConfig()
+        state = init_train_state(torch.Generator(device=dev).manual_seed(29),
+                                 cut, hyper, cc)
+        step = make_compressed_train_step(cut, hyper, cc, dist.group.WORLD)
+        res = {"hashes": [], "metrics": []}
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(TRAIN_RANK_STEPS):
+            state, met = step(state, lm_batches(task, i, device=dev))
+            res["metrics"].append({k: float(v) for k, v in met.items()})
+            res["hashes"].append({
+                path_name(p): hashlib.sha256(
+                    t.detach().cpu().reshape(-1).view(torch.uint8)
+                    .numpy().tobytes()).hexdigest()
+                for p, t in leaves_with_paths({"params": state["params"],
+                                               "opt": state["opt"]})})
+        res["seconds"] = time.perf_counter() - t0
+        res["launches"] = ops.launch_counts()
+        with open(out, "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _train_gloo(torch, dev) -> dict:
+    """Phase 14 (e): two gloo ranks sharing the card on the 2-layer cut;
+    after each step both ranks' parameters and optimizer states must be
+    bitwise equal."""
+    import shutil
+    store = REPO / "build" / "train_gloo"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    world = TRAIN_RANKS
+    files = [store / f"rank{r}.json" for r in range(world)]
+    logs = [open(store / f"rank{r}.log", "w") for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--train-rank",
+         str(r), str(world), str(store / "gloo"), str(files[r]), str(dev)],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p, log in zip(procs, logs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    wall = time.perf_counter() - t0
+    failed = [r for r, p in enumerate(procs) if p.returncode]
+    for r in failed:
+        print((store / f"rank{r}.log").read_text()[-3000:])
+    assert not failed, f"gloo ranks {failed} failed"
+    ranks = [json.loads(f.read_text()) for f in files]
+    for i in range(TRAIN_RANK_STEPS):
+        assert ranks[0]["hashes"][i] == ranks[1]["hashes"][i], i
+        assert ranks[0]["metrics"][i] == ranks[1]["metrics"][i], i
+    for r in ranks:
+        _launches_zero(r["launches"], "lm_train_gloo")
+    print(f"  (e) {world} gloo ranks on one card, {TRAIN_CUT_LAYERS}-layer "
+          f"cut, global batch {world} x {TRAIN_CUT_SEQ}: after each of "
+          f"{TRAIN_RANK_STEPS} steps every parameter and optimizer leaf "
+          f"bitwise equal across ranks ({len(ranks[0]['hashes'][0])} "
+          f"leaves); losses {[m['loss'] for m in ranks[0]['metrics']]}; "
+          f"{[round(r['seconds'], 2) for r in ranks]} s a rank, {wall:.1f} s "
+          f"with start-up")
+    return dict(ranks=world, steps=TRAIN_RANK_STEPS,
+                metrics=ranks[0]["metrics"], launches=ranks[0]["launches"],
+                seconds=[r["seconds"] for r in ranks], wall_seconds=wall)
+
+
+def phase_lm_train(torch, dev) -> dict:
+    """Phase 14: the LM training path (module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import LMTask, lm_batches
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.train import TrainHyper, init_train_state
+
+    t0 = time.perf_counter()
+    # the bf16 GEMMs reduce in float32, as in phase 11
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = get_config("tinyllama-1.1b")
+    assert cfg.remat == "full" and cfg.dtype == torch.bfloat16
+    hyper = TrainHyper(peak_lr=3e-4, warmup=2, total_steps=TRAIN_STEPS)
+    task = LMTask(vocab=cfg.vocab, seq_len=SHAPES["train_4k"].seq_len,
+                  batch=TRAIN_BATCH)
+    print(f"  tinyllama-1.1b: {cfg.param_count() / 1e9:.3f} B parameters, "
+          f"{cfg.n_layers} layers, float32 masters, {cfg.dtype} compute, "
+          f"remat {cfg.remat}; {task.seq_len} tokens > dense limit "
+          f"{cfg.dense_attn_max_seq}: the flash causal walk in every layer")
+    out = {}
+    state = init_train_state(torch.Generator(device=dev).manual_seed(24),
+                             cfg, hyper)
+    out["bf16_vs_f32"] = _train_bf16_vs_f32(
+        torch, cfg, state["params"], lm_batches(task, 0, device=dev))
+    torch.cuda.empty_cache()
+    out["main"] = _train_main(torch, dev, cfg, hyper, task, state,
+                              out["bf16_vs_f32"]["loss_bf16"])
+    del state
+    torch.cuda.empty_cache()
+    out["walks"] = _train_walks(torch, dev, cfg)
+    torch.cuda.empty_cache()
+    cut_task = LMTask(vocab=cfg.vocab, seq_len=TRAIN_CUT_SEQ, batch=1)
+    cut32 = _train_cut(cfg, torch.float32)
+    params = init_train_state(torch.Generator(device=dev).manual_seed(30),
+                              cut32, hyper)["params"]
+    out["card_vs_cpu"] = _train_card_vs_cpu(torch, dev, cut32, params, hyper,
+                                            cut_task)
+    del params
+    out["fault_tolerance"] = _train_fault(torch, dev, _train_cut(cfg), hyper,
+                                          cut_task)
+    torch.cuda.empty_cache()
+    out["compressed"] = _train_compressed(torch, dev, cfg, hyper, task)
+    torch.cuda.empty_cache()
+    out["gloo_ranks"] = _train_gloo(torch, dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 14: {out['seconds']:.1f} s")
+    return out
+
+
+def train_drift(argv) -> int:
+    """``chip_smoke.py --train-drift [LAYERS ...]``: the CPU estimate phase
+    14's bounds were set from.  tinyllama-1.1b at full width cut to each
+    of LAYERS (default 1 2 4) layers, batch 1, ``TRAIN_CUT_SEQ`` tokens
+    past a dense limit of ``TRAIN_CUT_CHUNK`` (the flash causal walk, under
+    remat): the first step's loss and gradient in bf16 against float32
+    (|loss difference|, the whole gradient's cosine, the smallest leaf
+    cosine); then the two walks' float32 dq, dk, dv against autograd
+    through the dense attention at phase 14 (c)'s shapes.  Runs on the
+    CPU."""
+    import dataclasses
+    import torch
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import LMTask, lm_batches
+    from repro_torch.models import layers
+    from repro_torch.models.flash import (flash_banded_attention,
+                                          flash_causal_attention)
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import make_loss_fn, value_and_grad
+
+    cfg = get_config("tinyllama-1.1b")
+    for n in [int(a) for a in argv] or [1, 2, 4]:
+        cut = dataclasses.replace(_cut_cfg(cfg, n),
+                                  dense_attn_max_seq=TRAIN_CUT_CHUNK,
+                                  attn_chunk=TRAIN_CUT_CHUNK)
+        params = init_params(torch.Generator().manual_seed(31), cut)
+        batch = lm_batches(LMTask(vocab=cfg.vocab, seq_len=TRAIN_CUT_SEQ,
+                                  batch=1), 0, device="cpu")
+        t0 = time.perf_counter()
+        l16, _, g16 = value_and_grad(make_loss_fn(cut), params, batch)
+        cut32 = dataclasses.replace(cut, dtype=torch.float32)
+        l32, _, g32 = value_and_grad(make_loss_fn(cut32), params, batch)
+        cos, worst = _tree_cos(g16, g32)
+        print(f"tinyllama-1.1b, {n} layers, batch 1 x {TRAIN_CUT_SEQ}: bf16 "
+              f"against float32 loss {float(l16):.6f} / {float(l32):.6f} "
+              f"(|difference| {abs(float(l16) - float(l32)):.4g}), gradient "
+              f"cosine {cos:.6f}, smallest leaf cosine {worst:.6f} "
+              f"({time.perf_counter() - t0:.0f} s)", flush=True)
+    g3 = get_config("gemma3-12b")
+    c = LM_CHUNK
+    cases = [
+        ("causal", (1, LM_FLASH_PROMPT, cfg.n_kv, cfg.n_heads // cfg.n_kv,
+                    cfg.head_dim),
+         lambda q, k, v: flash_causal_attention(q, k, v, c),
+         lambda q, k, v: layers.dense_attention(q, k, v)),
+        ("banded", (1, GEMMA3_PROMPT, g3.n_kv, g3.n_heads // g3.n_kv,
+                    g3.head_dim),
+         lambda q, k, v: flash_banded_attention(q, k, v, g3.window, c),
+         lambda q, k, v: layers.dense_attention(q, k, v, window=g3.window))]
+    for name, shape, walk, dense in cases:
+        g = torch.Generator().manual_seed(26)
+        q = torch.randn(shape, generator=g)
+        k, v = (torch.randn(shape[:3] + shape[4:], generator=g)
+                for _ in range(2))
+        dout = torch.randn(shape, generator=g)
+        grads = []
+        for fn in (walk, dense):
+            xs = [x.clone().requires_grad_() for x in (q, k, v)]
+            fn(*xs).backward(dout)
+            grads.append([x.grad for x in xs])
+        errs = [float((a - b).abs().max()) for a, b in zip(*grads)]
+        print(f"{name} walk {shape}: dq, dk, dv against the dense "
+              f"attention's max |difference| {errs}", flush=True)
+    return 0
+
+
 def bf16_drift(argv) -> int:
     """``chip_smoke.py --bf16-drift [ARCH ...]``: the CPU estimate phase
     12's bfloat16 bounds were set from.  Each config at full width, cut in
@@ -3227,6 +3903,7 @@ def main() -> int:
     assert not any(lm["tinyllama"]["launches"].values()), lm["tinyllama"]
     mixers = phase_lm_mixers(torch, dev)
     multimodal = phase_lm_multimodal(torch, dev)
+    train = phase_lm_train(torch, dev)
     # each kernel's launches on every path, each counted from zero;
     # ``launches`` is its main path's: the fleet's three, and the sampler's
     # entry point
@@ -3250,7 +3927,12 @@ def main() -> int:
                   for name in ("deepseek", "grok", "recurrentgemma",
                                "mamba2")},
                **{f"lm_multimodal_{name}": multimodal[name]["launches"]
-                  for name in ("whisper", "qwen2vl")}}
+                  for name in ("whisper", "qwen2vl")},
+               "lm_train": train["main"]["launches"],
+               "lm_train_fault_tolerance":
+                   train["fault_tolerance"]["launches"],
+               "lm_train_compressed": train["compressed"]["launches"],
+               "lm_train_gloo_rank0": train["gloo_ranks"]["launches"]}
     launches = dict(fleet_launches,
                     importance_select=importance["importance_select"])
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -3265,7 +3947,7 @@ def main() -> int:
              fleet=fleet, scarce_fleet=scarce, task_fleet=task_fleet,
              streamed=streamed, host_serve=host_serve, sharded=sharded,
              paper_path=paper, lm_serve=lm, lm_mixers=mixers,
-             lm_multimodal=multimodal),
+             lm_multimodal=multimodal, lm_train=train),
         indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -3280,4 +3962,8 @@ if __name__ == "__main__":
         sys.exit(_sharded_rank(sys.argv[2:]))
     if sys.argv[1:2] == ["--bf16-drift"]:
         sys.exit(bf16_drift(sys.argv[2:]))
+    if sys.argv[1:2] == ["--train-rank"]:
+        sys.exit(_train_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--train-drift"]:
+        sys.exit(train_drift(sys.argv[2:]))
     sys.exit(main())

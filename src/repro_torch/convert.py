@@ -25,7 +25,7 @@ __all__ = ["tensor", "har_params", "aux_params", "generator_params",
            "discriminator_params", "aac_table", "node_state",
            "intermittent_state", "task_host_params", "telemetry_state",
            "wire_payload", "wire_sample_payload", "host_payload",
-           "host_server_state", "lm_params", "to_numpy"]
+           "host_server_state", "lm_params", "train_state", "to_numpy"]
 
 
 def tensor(x, dtype: torch.dtype | None = None, device=None) -> torch.Tensor:
@@ -147,6 +147,16 @@ def host_server_state(state, device=None) -> HostServerState:
                  else telemetry_state(state.metrics, device)))
 
 
+def _leaf(x, device=None) -> torch.Tensor:
+    """An array-like as a tensor of its dtype; a bfloat16 array (numpy has
+    none of its own: ``ml_dtypes``' two-byte type) through its bits."""
+    a = np.array(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.as_tensor(a, device=device)
+
+
 def lm_params(tree, device=None):
     """``repro.models.init_params``'s LM parameter tree (``embed``,
     ``final_norm``, ``unembed``, ``runs`` of stacked leaves, ``encoder``
@@ -156,12 +166,20 @@ def lm_params(tree, device=None):
         return {k: lm_params(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [lm_params(v, device) for v in tree]
-    return torch.as_tensor(np.array(tree), device=device)
+    return _leaf(tree, device)
+
+
+def train_state(tree, device=None) -> dict:
+    """``repro.train.init_train_state``'s state — ``{"params", "opt": {"m",
+    "v", "step"}}`` and, under error feedback, ``"ef"`` — as the port's,
+    each leaf's dtype kept (the int32 step a 0-dim tensor)."""
+    return lm_params(tree, device)
 
 
 def to_numpy(tree):
     """The port's NamedTuples, dicts, lists and tensors as numpy arrays, in
-    the same structure (``None`` stays ``None``), for comparing with JAX."""
+    the same structure (``None`` stays ``None``; a bfloat16 tensor comes
+    back as float32, which holds it exactly), for comparing with JAX."""
     if tree is None:
         return None
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -170,4 +188,5 @@ def to_numpy(tree):
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [to_numpy(x) for x in tree]
-    return tree.detach().cpu().numpy()
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -1,5 +1,6 @@
 """Seeker's core: coresets, recovery, memoization, energy model, the
-decision flow and the classical codecs it is compared with."""
+decision flow, the classical codecs it is compared with, and the gradient
+and activation codecs of the training fleet."""
 from .coreset import (  # noqa: F401
     ClusterCoreset, SamplingCoreset, points_from_window, window_from_points,
     channel_cluster_coresets, kmeans_coreset, importance_weights,
@@ -33,4 +34,10 @@ from .decision import (  # noqa: F401
 )
 from .classical import (  # noqa: F401
     dct_compress, dwt_compress, fourier_compress, classical_payload_bytes,
+)
+from .compression import (  # noqa: F401
+    CompressionConfig, topk_compress, topk_decompress, topk_block_compress,
+    topk_block_decompress, kmeans1d, kmeans1d_decompress, Kmeans1dCoreset,
+    coreset_allreduce, compress_activation, decompress_activation,
+    wire_bytes_dense_psum, wire_bytes_topk_allgather, wire_bytes_kmeans1d,
 )

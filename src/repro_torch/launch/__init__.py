@@ -1,1 +1,1 @@
-"""Command-line launchers."""
+"""Command-line launchers (serving, training) and the shape cells."""

@@ -11,7 +11,10 @@ dimension, in the reference's tree (``embed``, ``unembed``,
 ``final_norm``, ``runs[i]`` with ``norm1``, the mixer's leaves, ``xnorm``
 and ``xw*`` for cross-attention, ``norm2`` and ``mlp_*`` or the MoE
 leaves; ``encoder`` with its own ``runs`` and ``final_norm``), and a run
-is a Python loop over that dimension.
+is a Python loop over that dimension.  ``forward`` is differentiable:
+with ``cfg.remat == "full"`` each layer runs under
+``torch.utils.checkpoint`` while gradients are on, as the reference
+checkpoints its scanned layer body.
 
 * :func:`forward`     — full sequence; ``return_cache=True`` also builds the
   serving cache (prefill).
@@ -355,6 +358,21 @@ def _block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
     return x, aux
 
 
+def _remat_block(p: dict, x: torch.Tensor, cfg: ModelConfig, remat: str,
+                 **kw) -> torch.Tensor:
+    """One layer's output; with ``remat == "full"`` and gradients on, under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+    scanned layer body): the layer saves only its inputs, and the backward
+    recomputes its activations."""
+    def body(x, p):
+        return _block_apply(p, x, cfg, **kw)[0]
+
+    if remat == "full" and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(body, x, p, use_reentrant=False)
+    return body(x, p)
+
+
 def _run_theta(cfg: ModelConfig, kind: str) -> float:
     if kind == "attn" and cfg.global_rope_theta > 0:
         return cfg.global_rope_theta
@@ -436,8 +454,8 @@ def _encode(params: dict, cfg: ModelConfig,
                                  x.device).to(cfg.dtype)[None]
     p_run = params["encoder"]["runs"][0]
     for i in range(cfg.encoder_layers):
-        x, _ = _block_apply(_layer(p_run, i), x, enc_cfg, kind="attn",
-                            is_moe=False, rope=None, causal=False)
+        x = _remat_block(_layer(p_run, i), x, enc_cfg, cfg.remat,
+                         kind="attn", is_moe=False, rope=None, causal=False)
     return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
 
 
@@ -490,11 +508,15 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         rope = _run_rope(cfg, kind, positions, mpos)
         auxs = []
         for i in range(length):
-            x, aux = _block_apply(_layer(p_run, i), x, cfg, kind=kind,
-                                  is_moe=is_moe, rope=rope, enc_out=enc_out,
-                                  want_state=return_cache)
             if return_cache:
+                x, aux = _block_apply(_layer(p_run, i), x, cfg, kind=kind,
+                                      is_moe=is_moe, rope=rope,
+                                      enc_out=enc_out, want_state=True)
                 auxs.append(aux)
+            else:
+                x = _remat_block(_layer(p_run, i), x, cfg, cfg.remat,
+                                 kind=kind, is_moe=is_moe, rope=rope,
+                                 enc_out=enc_out)
         if return_cache:
             run_caches.append(_prefill_run_cache(auxs, cfg, kind,
                                                  cache_len or s, s))

@@ -15,7 +15,8 @@ region.
 * :func:`tile_bounds` and :func:`tile_index`: the padded fleet and a rank's
   ``[start, stop)`` tile in pod-major order;
 * :func:`node_shard`: all of that for the calling rank, with the group its
-  collectives run on;
+  collectives run on; :func:`group_shard`: a whole process group as one
+  data axis (the compressed gradient reduction's);
 * :func:`all_reduce_sum`, :func:`all_gather_tiles` and
   :func:`exchange`: the collectives the sharded fleet driver issues.  Gloo
   refuses CUDA tensors in ``all_gather`` and in point-to-point sends, so
@@ -31,7 +32,8 @@ from typing import Mapping, NamedTuple, Sequence
 import torch
 
 __all__ = ["FLEET_RULES", "NodeShard", "node_mesh_axes", "make_mesh",
-           "tile_bounds", "tile_index", "node_shard", "all_reduce_sum",
+           "tile_bounds", "tile_index", "node_shard", "group_shard",
+           "all_reduce_sum",
            "all_gather_tiles", "exchange"]
 
 ShardingRules = Mapping[str, "tuple[str, ...] | str | None"]
@@ -173,6 +175,20 @@ def node_shard(mesh) -> NodeShard:
     return NodeShard(axes=axes, quantum=quantum,
                      index=tile_index(coords, sizes, axes), coords=coords,
                      sizes=sizes, group=group, order=tuple(order), grid=grid,
+                     backend=str(dist.get_backend(group)))
+
+
+def group_shard(group=None) -> NodeShard:
+    """The ranks of ``group`` (the default group when None) as one
+    ``("data",)`` axis in group-rank order: the calling rank's tile is its
+    group rank.  Needs an initialized process group."""
+    import torch.distributed as dist
+    group = dist.group.WORLD if group is None else group
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    return NodeShard(axes=("data",), quantum=world, index=rank,
+                     coords={"data": rank}, sizes={"data": world},
+                     group=group, order=tuple(range(world)),
+                     grid=torch.tensor(dist.get_process_group_ranks(group)),
                      backend=str(dist.get_backend(group)))
 
 

@@ -1,9 +1,10 @@
 """The LM serving path in ``repro_torch`` against ``repro``, on the same
 numpy inputs, on the CPU: the ten architecture configs, the layers
-(``rms_norm``, RoPE, the four attention shapes), the flash forward walks,
-``forward`` on the dense, chunked and flash paths, prefill-then-decode with
-linear and ring caches, ``generate`` (greedy, and temperature sampling with
-JAX's Gumbel draws injected) and the serve launcher.  The whisper and
+(``rms_norm``, RoPE, the four attention shapes), the flash walks forward
+and backward, ``forward`` on the dense, chunked and flash paths,
+prefill-then-decode with linear and ring caches, ``generate`` (greedy, and
+temperature sampling with JAX's Gumbel draws injected) and the serve
+launcher.  The whisper and
 qwen2-vl paths are held in tests/test_torch_lm_multimodal.py.
 
 Parameters in the layout of JAX's ``init_params``, drawn with numpy,
@@ -179,14 +180,14 @@ def test_attention_matches_jax(case):
         _close(got, want)
 
 
-def test_flash_walks_refuse_gradients_and_equal_their_plain_twins():
-    """A walk on inputs that require gradients raises (the backward walks
-    come with training); under no_grad the flash walks equal the pair-
-    chunked and banded walks on the same inputs, and the materialized-score
-    attention, which shares no code with them (rtol 1e-5, atol 1e-5)."""
-    q, k, v = map(torch.as_tensor, _qkv(3, s=64))
-    with pytest.raises(NotImplementedError, match="backward"):
-        tflash.flash_causal_attention(q.requires_grad_(), k, v, 16)
+def test_flash_walks_take_gradients_and_equal_their_plain_twins():
+    """The flash walks equal the pair-chunked and banded walks on the same
+    inputs, and the materialized-score attention, which shares no code
+    with them; their backward walks give the dq, dk and dv of autograd
+    through the materialized-score attention and of JAX's ``custom_vjp``
+    walks, with and without a soft-cap (rtol 1e-5, atol 1e-5)."""
+    qkv = _qkv(3, s=64)
+    q, k, v = map(torch.as_tensor, qkv)
     with torch.no_grad():
         causal = tflash.flash_causal_attention(q, k, v, 16)
         banded = tflash.flash_banded_attention(q, k, v, 24, 16)
@@ -194,6 +195,30 @@ def test_flash_walks_refuse_gradients_and_equal_their_plain_twins():
         _close(banded, tl.banded_attention(q, k, v, window=24, chunk=16))
         _close(causal, tl.dense_attention(q, k, v))
         _close(banded, tl.dense_attention(q, k, v, window=24))
+    dout = np.random.default_rng(4).standard_normal(qkv[0].shape).astype(
+        np.float32)
+    cases = {
+        "causal": (lambda *x: tflash.flash_causal_attention(*x, 16, 2.0),
+                   lambda *x: tl.dense_attention(*x, softcap=2.0),
+                   lambda *x: jflash.flash_causal_attention(*x, 16, 2.0)),
+        "causal_plain": (lambda *x: tflash.flash_causal_attention(*x, 16),
+                         lambda *x: tl.dense_attention(*x),
+                         lambda *x: jflash.flash_causal_attention(*x, 16)),
+        "banded": (lambda *x: tflash.flash_banded_attention(*x, 24, 16, 2.0),
+                   lambda *x: tl.dense_attention(*x, window=24, softcap=2.0),
+                   lambda *x: jflash.flash_banded_attention(*x, 24, 16,
+                                                            2.0)),
+    }
+    for name, (walk, dense, jwalk) in cases.items():
+        grads = []
+        for fn in (walk, dense):
+            xs = [torch.as_tensor(a).requires_grad_() for a in qkv]
+            (fn(*xs) * torch.as_tensor(dout)).sum().backward()
+            grads.append([x.grad for x in xs])
+        _, vjp = jax.vjp(jwalk, *map(jnp.asarray, qkv))
+        for got, via_dense, want in zip(*grads, vjp(jnp.asarray(dout))):
+            _close(got, via_dense)
+            _close(got, want)
 
 
 # ---------------------------------------------------------------------------
