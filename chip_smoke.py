@@ -183,10 +183,31 @@ Phases (any failure exits non-zero and prints no result):
    OUT DEVICE``), both ranks' states bitwise equal after each step.  The
    four hand kernels are not on this path: their launches on every
    training path must be 0;
-15. the kernel table as one JSON line (each kernel's launches on every
+15. the LM sharding rules on a ``DeviceMesh`` (world size 1 on NCCL,
+   a (1, 1) ("data", "model") mesh from ``launch/mesh.py``): (a) phase
+   14's state, batches and first four steps through ``run_training`` as
+   the FSDP step (``FSDP_RULES``, the state placed by
+   ``train_state_specs``), losses and grad norms bitwise or within
+   ``SHARD_REL`` of phase 14's, with step ms, device busy, idle share,
+   launches a step and peak memory beside phase 14's; (b) the DP+TP
+   compressed step (``dp_axes=("data",)``) against phase 14 (e)'s
+   world-of-one compressed step from the same state, the codec's top-k
+   indices of the first step (recorded there) exactly; (c) on the
+   2-layer cut, the state drawn onto the mesh leaf by leaf
+   (``init_train_state(shardings=)``, as the launcher draws it) equal to
+   the placed draw, a checkpoint of the unsharded state restored with
+   ``shardings=`` (each local shard its slice) and a preempted sharded
+   run bitwise equal to a clean one; (d) four gloo ranks sharing
+   the card on a (2, 2) mesh (the script starts itself as
+   ``chip_smoke.py --lm-shard-rank R 4 STORE OUT DEVICE``), held to the
+   world of one, where gloo carries DTensor's collectives for tensors on
+   the card (a probe in each rank decides; otherwise left out, with the
+   reason printed); the four hand kernels' launches must be 0 on every
+   path;
+16. the kernel table as one JSON line (each kernel's launches on every
    path, ``per_sensor_oracle``, ``bearing_step``, ``codecs``, ``lm_serve``,
-   the ``lm_mixers_*``, ``lm_multimodal_*`` and ``lm_train*`` cells among
-   them), then the result line.
+   the ``lm_mixers_*``, ``lm_multimodal_*``, ``lm_train*`` and
+   ``lm_sharded_*`` cells among them), then the result line.
 
 ``python3 chip_smoke.py --bf16-drift [ARCH ...]`` runs, on the CPU, the
 estimate phase 12's bfloat16 bounds were set from (``bf16_drift``), and
@@ -274,6 +295,16 @@ TRAIN_RANKS, TRAIN_RANK_STEPS = 2, 2
 TRAIN_BF16_LOSS, TRAIN_BF16_COS = 0.01, 0.999
 TRAIN_CPU_GRAD, TRAIN_CPU_LOSS = 1e-3, 1e-5
 WALK_GRAD_TOL = 1e-4
+# phase 15: the LM sharding rules on a DeviceMesh; (a) phase 14's first 4
+# steps as the FSDP step on a (1, 1) mesh, held to phase 14's losses and
+# grad norms bitwise or within SHARD_REL; (b) 2 DP+TP compressed steps
+# against the world-of-one compressed step; (d) 4 gloo ranks on a (2, 2)
+# mesh, the float32 2-layer cut at batch 4, 2 steps, held to the world of
+# one within SHARD_RANK_REL (set from the CPU run of the same ranks:
+# PERF.md §6)
+SHARD_STEPS, SHARD_REL, SHARD_CMP_STEPS = 4, 1e-6, 2
+SHARD_RANKS4, SHARD_RANK_STEPS, SHARD_RANK_BATCH = 4, 2, 4
+SHARD_RANK_REL = 1e-5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 on the tensor cores
@@ -2458,7 +2489,7 @@ def _lm_bounds(cfg, served, batch: int, prompt: int, cache_len: int,
         if kind in ("rglru", "ssd"):
             shapes = (rglru_state_shapes(cfg, batch) if kind == "rglru"
                       else ssd_state_shapes(cfg, batch))
-            state += sum(math.prod(v) for v in shapes.values()) * (
+            state += sum(math.prod(v[0]) for v in shapes.values()) * (
                 cfg.dtype.itemsize)
         if kind == "ssd":
             # intra-chunk C.B and its product with x, the chunk states and
@@ -3541,7 +3572,7 @@ def _payload_bytes(cfg_c, params) -> dict:
 def _train_compressed(torch, dev, cfg, hyper, task) -> dict:
     """Phase 14 (e): the compressed step at world size 1 on NCCL with the
     full model and ``CompressionConfig()`` (top-k 1/64, error feedback):
-    one warm-up step and two timed."""
+    one warm-up step, whose top-k indices are kept, and two timed."""
     import shutil
     import torch.distributed as dist
     from repro_torch.core.compression import CompressionConfig
@@ -3562,9 +3593,11 @@ def _train_compressed(torch, dev, cfg, hyper, task) -> dict:
                                  cfg, hyper, cc)
         step = make_compressed_train_step(cfg, hyper, cc, dist.group.WORLD)
         ops.reset_launch_counts()
-        mets, marks = [], [time.perf_counter()]
+        mets, picked, marks = [], [], [time.perf_counter()]
         for i in range(3):
-            state, met = step(state, lm_batches(task, i, device=dev))
+            with (_topk_recorder(picked) if i == 0
+                  else contextlib.nullcontext()):
+                state, met = step(state, lm_batches(task, i, device=dev))
             mets.append({k: float(v) for k, v in met.items()})
             marks.append(time.perf_counter())
         launches = _launches_zero(ops.launch_counts(),
@@ -3586,7 +3619,8 @@ def _train_compressed(torch, dev, cfg, hyper, task) -> dict:
           f"against {wire['dense_bf16_bytes'] / 1e6:.2f} MB dense bf16 "
           f"({wire['payload_share']:.4f}); launches {launches}")
     return dict(step_ms=step_ms, warmup_step_ms=(marks[1] - marks[0]) * 1e3,
-                metrics=mets, residual_norm=ef, launches=launches, **wire)
+                metrics=mets, residual_norm=ef, launches=launches,
+                topk_first_step=picked, **wire)
 
 
 def _train_rank(argv) -> int:
@@ -3737,6 +3771,465 @@ def phase_lm_train(torch, dev) -> dict:
     out["gloo_ranks"] = _train_gloo(torch, dev)
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 14: {out['seconds']:.1f} s")
+    return out
+
+
+@contextlib.contextmanager
+def _topk_recorder(store: list):
+    """Record the indices of every top-k the gradient codec takes while
+    the context is open."""
+    from repro_torch.core import compression as tc
+    inner = tc.topk_compress
+
+    def wrapped(flat, k):
+        vals, idx = inner(flat, k)
+        store.append(idx.clone())
+        return vals, idx
+
+    tc.topk_compress = wrapped
+    try:
+        yield store
+    finally:
+        tc.topk_compress = inner
+
+
+def _same_or_rel(got: list, want: list, tol: float, what: str) -> dict:
+    """Two metric sequences: bitwise equal, or the largest relative
+    difference (at most ``tol``)."""
+    rel = max((abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want)),
+              default=0.0)
+    assert len(got) == len(want) and rel <= tol, (what, got, want)
+    return dict(bitwise=got == want, max_rel=rel)
+
+
+def _placed_state(cfg, state, mesh, rules, compression=None):
+    from repro_torch import sharding as shd
+    from repro_torch.train import train_state_specs
+    return shd.place(state, shd.tree_named_shardings(
+        train_state_specs(cfg, compression), state, mesh, rules))
+
+
+def _sharded_main(torch, dev, mesh, cfg, hyper, task, ref) -> dict:
+    """Phase 15 (a): the FSDP step on the mesh through ``run_training``,
+    ``SHARD_STEPS`` steps from phase 14's initial state and batches, held
+    to phase 14's losses and grad norms; step ms over all but the first
+    step, peak memory, launches of the four kernels, and one more step
+    under the profiler."""
+    from repro_torch import sharding as shd
+    from repro_torch.data.lm import lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.train import (TrainLoopConfig, init_train_state,
+                                   make_train_step, run_training)
+
+    state = init_train_state(torch.Generator(device=dev).manual_seed(24),
+                             cfg, hyper)
+    state = _placed_state(cfg, state, mesh, shd.FSDP_RULES)
+    step = make_train_step(cfg, hyper)
+    marks = []
+
+    def batch_fn(s):
+        marks.append(time.perf_counter())
+        return lm_batches(task, s, device=dev)
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with shd.use_sharding(mesh, shd.FSDP_RULES):
+        state, log = run_training(state, step, batch_fn, TrainLoopConfig(
+            total_steps=SHARD_STEPS, log_every=1))
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    launches = _launches_zero(ops.launch_counts(), "lm_sharded_fsdp")
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in log]
+    norms = [m["grad_norm"] for m in log]
+    assert all(math.isfinite(x) for x in losses + norms), log
+    held = dict(
+        loss=_same_or_rel(losses, ref["losses"][:SHARD_STEPS], SHARD_REL,
+                          "loss"),
+        grad_norm=_same_or_rel(norms, ref["grad_norms"][:SHARD_STEPS],
+                               SHARD_REL, "grad_norm"))
+    step_s = [b - a for a, b in zip(marks[1:-1], marks[2:])]
+    step_ms = sum(step_s) / len(step_s) * 1e3
+    placements = {str(p): tuple(str(x) for x in t.placements)
+                  for p, t in (("embed", state["params"]["embed"]),
+                               ("unembed", state["params"]["unembed"]))}
+    with shd.use_sharding(mesh, shd.FSDP_RULES):
+        profile = _profile(torch, lambda: step(state, lm_batches(
+            task, SHARD_STEPS, device=dev)), 1, step_ms / 1e3,
+            "lm_sharded_step")
+    out = dict(steps=SHARD_STEPS, step_ms=step_ms,
+               step_ms_each=[x * 1e3 for x in step_s],
+               warmup_step_ms=(marks[1] - marks[0]) * 1e3,
+               tokens_per_s=task.batch * task.seq_len / (step_ms / 1e3),
+               losses=losses, grad_norms=norms, held_to_phase14=held,
+               peak_memory_gb=peak / 1e9, resident_before_gb=resident / 1e9,
+               launches=launches, profile=profile, placements=placements,
+               phase14=dict(step_ms=ref["step_ms"],
+                            peak_memory_gb=ref["peak_memory_gb"],
+                            profile=ref["profile"]))
+    print(f"  (a) FSDP step on the {tuple(mesh.shape)} mesh, batch "
+          f"{task.batch} x {task.seq_len}: {step_ms:.1f} ms/step (phase 14 "
+          f"{ref['step_ms']:.1f}; warm-up {out['warmup_step_ms']:.1f} ms), "
+          f"peak memory {out['peak_memory_gb']:.3f} GB (phase 14 "
+          f"{ref['peak_memory_gb']:.3f}); launches a step "
+          f"{profile['kernel_launches_per_slot']:.0f} (phase 14 "
+          f"{ref['profile']['kernel_launches_per_slot']:.0f}), device busy "
+          f"{profile['device_busy_ms_per_slot']:.1f} ms (phase 14 "
+          f"{ref['profile']['device_busy_ms_per_slot']:.1f}); losses and grad "
+          f"norms against phase 14's: "
+          f"{'bitwise' if held['loss']['bitwise'] else held['loss']['max_rel']}"
+          f" / {'bitwise' if held['grad_norm']['bitwise'] else held['grad_norm']['max_rel']}"
+          f"; placements {placements}; hand-kernel launches {launches}")
+    return out
+
+
+def _sharded_compressed(torch, dev, mesh, cfg, hyper, task, ref) -> dict:
+    """Phase 15 (b): the DP+TP compressed step on the mesh (DP over
+    "data", TP over "model"), ``SHARD_CMP_STEPS`` steps from phase 14
+    (e)'s seed-28 state and batches, held to phase 14 (e)'s world-of-one
+    compressed step: the codec's top-k indices of the first step exactly,
+    losses and grad norms bitwise or within ``SHARD_REL``."""
+    from repro_torch import sharding as shd
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.data.lm import lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.train import init_train_state, make_compressed_train_step
+
+    cc = CompressionConfig()
+    # popped: phase 14's record is written as JSON
+    want, want_idx = (ref["metrics"][:SHARD_CMP_STEPS],
+                      ref.pop("topk_first_step"))
+    state = init_train_state(torch.Generator(device=dev).manual_seed(28),
+                             cfg, hyper, cc)
+    state = _placed_state(cfg, state, mesh, shd.DP_TP_RULES, cc)
+    step = make_compressed_train_step(cfg, hyper, cc, mesh,
+                                      dp_axes=("data",))
+    got, got_idx = [], []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with shd.use_sharding(mesh, shd.DP_TP_RULES):
+        for i in range(SHARD_CMP_STEPS):
+            with (_topk_recorder(got_idx) if i == 0
+                  else contextlib.nullcontext()):
+                state, met = step(state, lm_batches(task, i, device=dev))
+            got.append({k: float(v) for k, v in met.items()})
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    launches = _launches_zero(ops.launch_counts(), "lm_sharded_dptp")
+    assert len(got_idx) == len(want_idx) > 0, (len(got_idx), len(want_idx))
+    same_idx = all(torch.equal(a, b) for a, b in zip(got_idx, want_idx))
+    assert same_idx, "the codec's indices differ"
+    held = dict(
+        loss=_same_or_rel([m["loss"] for m in got],
+                          [m["loss"] for m in want], SHARD_REL, "loss"),
+        grad_norm=_same_or_rel([m["grad_norm"] for m in got],
+                               [m["grad_norm"] for m in want], SHARD_REL,
+                               "grad_norm"))
+    n_idx = sum(int(x.numel()) for x in got_idx)
+    print(f"  (b) DP+TP compressed step on the {tuple(mesh.shape)} mesh "
+          f"(dp over data) against phase 14 (e)'s world-of-one compressed "
+          f"step: {len(got_idx)} leaves' top-k indices ({n_idx} integers) "
+          f"equal; losses / grad norms "
+          f"{'bitwise' if held['loss']['bitwise'] else held['loss']['max_rel']}"
+          f" / {'bitwise' if held['grad_norm']['bitwise'] else held['grad_norm']['max_rel']}"
+          f"; {SHARD_CMP_STEPS} steps {mesh_s:.1f} s on the mesh; launches "
+          f"{launches}")
+    return dict(metrics=got, reference_metrics=want, held=held,
+                topk_leaves=len(got_idx), topk_integers=n_idx,
+                launches=launches, seconds_mesh=mesh_s)
+
+
+def _sharded_cut(torch, dev, mesh, cfg, hyper) -> dict:
+    """Phase 15 (c), the 2-layer cut at full width: the state drawn onto
+    the mesh leaf by leaf equal to the placed draw, a checkpoint of the
+    unsharded state restored with ``shardings=`` onto the mesh (each local
+    shard equal to its slice), and the FSDP step through ``run_training``
+    preempted at step 6 and resumed from step 4 onto the mesh, bitwise
+    equal to a clean sharded run."""
+    import shutil
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    from repro_torch import sharding as shd
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.data.lm import LMTask, lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.train import (TrainLoopConfig, init_train_state,
+                                   make_train_step, run_training,
+                                   train_state_specs)
+    from repro_torch.tree import leaves, leaves_with_paths, path_name
+
+    cut = _train_cut(cfg)
+    task = LMTask(vocab=cut.vocab, seq_len=TRAIN_CUT_SEQ, batch=1)
+    root = REPO / "build" / "sharded_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    state0 = init_train_state(torch.Generator(device=dev).manual_seed(31),
+                              cut, hyper)
+    sh = shd.tree_named_shardings(train_state_specs(cut), state0, mesh,
+                                  shd.FSDP_RULES)
+    drawn = init_train_state(torch.Generator(device=dev).manual_seed(31),
+                             cut, hyper, shardings=sh)
+    assert all(torch.equal(a.to_local(), b.to_local()) for a, b in zip(
+        leaves(drawn), leaves(shd.place(state0, sh)))), "drawn placed"
+    del drawn
+    try:
+        save_checkpoint(str(root / "plain"), 1, state0)
+        back = restore_checkpoint(str(root / "plain"), 1, state0,
+                                  shardings=sh)
+        slices = 0
+        for (path, got), want in zip(leaves_with_paths(back),
+                                     leaves(state0)):
+            shape, offset = compute_local_shape_and_global_offset(
+                got.shape, got.device_mesh, got.placements)
+            sl = tuple(slice(o, o + n) for o, n in zip(offset, shape))
+            assert torch.equal(got.to_local(), want[sl]), path_name(path)
+            slices += 1
+        step = make_train_step(cut, hyper)
+
+        def batch_fn(s):
+            return lm_batches(task, s, device=dev)
+
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with shd.use_sharding(mesh, shd.FSDP_RULES):
+            crash, log = run_training(
+                shd.place(state0, sh), step, batch_fn, TrainLoopConfig(
+                    total_steps=TRAIN_FT_STEPS, ckpt_dir=str(root / "run"),
+                    ckpt_every=TRAIN_FT_EVERY, log_every=1,
+                    preempt_at=TRAIN_FT_PREEMPT), shardings=sh)
+        torch.cuda.synchronize()
+        crash_s = time.perf_counter() - t0
+        launches = _launches_zero(ops.launch_counts(),
+                                  "lm_sharded_fault_tolerance")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    with shd.use_sharding(mesh, shd.FSDP_RULES):
+        clean, _ = run_training(shd.place(state0, sh), step, batch_fn,
+                                TrainLoopConfig(total_steps=TRAIN_FT_STEPS,
+                                                log_every=1))
+    events = [(m["event"], m.get("step")) for m in log if "event" in m]
+    assert events == [("preempted", None), ("resume", TRAIN_FT_EVERY)], events
+    differ = [path_name(p) for (p, a), b in zip(leaves_with_paths(crash),
+                                                leaves(clean))
+              if not torch.equal(a.full_tensor(), b.full_tensor())]
+    assert not differ, differ
+    print(f"  (c) {TRAIN_CUT_LAYERS}-layer cut: the state drawn onto the "
+          f"mesh leaf by leaf equal to the placed draw; the unsharded "
+          f"checkpoint restored onto the mesh, {slices} leaves each equal "
+          f"to its slice; the sharded run preempted at {TRAIN_FT_PREEMPT} and "
+          f"resumed from step {TRAIN_FT_EVERY} ({events}) bitwise equal to "
+          f"a clean one ({crash_s:.1f} s with the restart); launches "
+          f"{launches}")
+    return dict(restored_leaves=slices, events=events, bitwise_equal=True,
+                launches=launches, crash_run_seconds=crash_s)
+
+
+def _lm_shard_rank(argv, probe: bool = False) -> int:
+    """One of phase 15 (d)'s ranks sharing the card (started by
+    :func:`_sharded_ranks` as ``chip_smoke.py --lm-shard-rank R WORLD
+    STORE OUT DEVICE``): the float32 2-layer cut's FSDP steps on a (2,
+    WORLD/2) ("data", "model") mesh, the metrics and each parameter leaf's
+    norm written to OUT (JSON).  With ``probe`` (``--lm-shard-probe``) it
+    only gathers a split tensor on DEVICE through DTensor, writing each
+    stage it reaches to OUT as it goes."""
+    import torch
+    import torch.distributed as dist
+    rank, world, store, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    dev = torch.device(argv[4])
+
+    def stage(name):
+        if probe:
+            with open(out, "a") as f:
+                f.write(name + "\n")
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, str(REPO / "src"))
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.launch.mesh import make_mesh_for
+    stage("start")
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        stage("group")
+        mesh = make_mesh_for((2, world // 2), ("data", "model"),
+                             device_type=dev.type)
+        stage("mesh")
+        if probe:
+            x = distribute_tensor(torch.arange(8.0, device=dev), mesh,
+                                  [Shard(0), Replicate()])
+            stage("placed")
+            whole = x.full_tensor().cpu()
+            stage("gathered")
+            if not torch.equal(whole, torch.arange(8.0)):
+                raise RuntimeError(f"gathered {whole.tolist()}")
+            stage("ok")
+            return 0
+        res = _shard_cut_steps(torch, dev, mesh)
+        with open(out, "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _shard_cut_steps(torch, dev, mesh) -> dict:
+    """The float32 2-layer cut's ``SHARD_RANK_STEPS`` FSDP steps on
+    ``mesh`` from the seed-32 state at batch ``SHARD_RANK_BATCH`` x
+    ``TRAIN_CUT_SEQ``: the metrics, each parameter leaf's L2 norm after
+    them, the launches and the seconds."""
+    from repro_torch import sharding as shd
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import LMTask, lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.train import TrainHyper, init_train_state, make_train_step
+    from repro_torch.tree import leaves_with_paths, path_name
+
+    cut = _train_cut(get_config("tinyllama-1.1b"), torch.float32)
+    hyper = TrainHyper(peak_lr=3e-4, warmup=1, total_steps=10)
+    task = LMTask(vocab=cut.vocab, seq_len=TRAIN_CUT_SEQ,
+                  batch=SHARD_RANK_BATCH)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(32),
+                             cut, hyper)
+    state = _placed_state(cut, state, mesh, shd.FSDP_RULES)
+    step = make_train_step(cut, hyper)
+    ops.reset_launch_counts()
+    mets = []
+    t0 = time.perf_counter()
+    with shd.use_sharding(mesh, shd.FSDP_RULES):
+        for i in range(SHARD_RANK_STEPS):
+            state, met = step(state, lm_batches(task, i, device=dev))
+            mets.append({k: float(v) for k, v in met.items()})
+    secs = time.perf_counter() - t0
+    norms = {path_name(p): float(torch.linalg.vector_norm(t.full_tensor()))
+             for p, t in leaves_with_paths(state["params"])}
+    return dict(metrics=mets, norms=norms, launches=ops.launch_counts(),
+                seconds=secs)
+
+
+def _start_ranks(dev, mode: str, store, timeout: float):
+    """Run ``SHARD_RANKS4`` copies of this script as ``mode`` ranks on
+    ``dev``; returns each rank's exit code, output file and log."""
+    import shutil
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    world = SHARD_RANKS4
+    files = [store / f"rank{r}.out" for r in range(world)]
+    logs = [open(store / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), mode, str(r),
+         str(world), str(store / "gloo"), str(files[r]), str(dev)],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p, log in zip(procs, logs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    return [(p.returncode, f, store / f"rank{r}.log")
+            for r, (p, f) in enumerate(zip(procs, files))]
+
+
+def _sharded_ranks(torch, dev, mesh) -> dict:
+    """Phase 15 (d): ``SHARD_RANKS4`` gloo ranks sharing the card on a
+    (2, 2) mesh, the float32 2-layer cut, held to the same steps on this
+    process's world-of-one mesh within ``SHARD_RANK_REL`` (losses, grad
+    norms, each parameter leaf's norm) — run only where gloo carries
+    DTensor's collectives for tensors on the card, which a probe of as
+    many ranks decides first."""
+    t0 = time.perf_counter()
+    probe = _start_ranks(dev, "--lm-shard-probe",
+                         REPO / "build" / "lm_shard_probe", 120)
+    stages = [f.read_text().split() if f.exists() else [] for _, f, _ in probe]
+    if any(rc or s[-1:] != ["ok"] for (rc, _, _), s in zip(probe, stages)):
+        reason = "; ".join(sorted({
+            f"exit {rc}, last stage {s[-1] if s else 'none'}, "
+            f"{log.read_text().strip()[-300:]!r}"
+            for (rc, _, log), s in zip(probe, stages)}))
+        wall = time.perf_counter() - t0
+        print(f"  (d) left out: gloo does not carry DTensor's collectives of "
+              f"tensors on the card, and NCCL refuses two ranks on one "
+              f"device; the probe: {reason} ({wall:.1f} s)")
+        return dict(ran=False, reason=reason, wall_seconds=wall)
+    world = SHARD_RANKS4
+    ran = _start_ranks(dev, "--lm-shard-rank", REPO / "build" /
+                       "lm_shard_gloo", 600)
+    wall = time.perf_counter() - t0
+    failed = [r for r, (rc, _, _) in enumerate(ran) if rc]
+    for r in failed:
+        print(ran[r][2].read_text()[-3000:])
+    assert not failed, f"phase 15 (d) ranks {failed} failed"
+    ranks = [json.loads(f.read_text()) for _, f, _ in ran]
+    one = _shard_cut_steps(torch, dev, mesh)
+    worst = 0.0
+    for r in ranks:
+        _launches_zero(r["launches"], "lm_sharded_gloo")
+        for key in ("loss", "grad_norm"):
+            worst = max(worst, _same_or_rel(
+                [m[key] for m in r["metrics"]],
+                [m[key] for m in one["metrics"]], SHARD_RANK_REL,
+                key)["max_rel"])
+        worst = max(worst, _same_or_rel(
+            [r["norms"][k] for k in sorted(one["norms"])],
+            [one["norms"][k] for k in sorted(one["norms"])], SHARD_RANK_REL,
+            "param norms")["max_rel"])
+    print(f"  (d) {world} gloo ranks on one card, (2, 2) mesh, float32 "
+          f"{TRAIN_CUT_LAYERS}-layer cut, {SHARD_RANK_STEPS} FSDP steps: "
+          f"losses, grad norms and parameter norms within {worst:.3g} "
+          f"relative of the world of one (bound {SHARD_RANK_REL}); "
+          f"{[round(r['seconds'], 2) for r in ranks]} s a rank, {wall:.1f} s "
+          f"with start-up")
+    return dict(ran=True, ranks=world, max_rel=worst,
+                metrics=ranks[0]["metrics"], launches=ranks[0]["launches"],
+                seconds=[r["seconds"] for r in ranks], wall_seconds=wall)
+
+
+def phase_lm_sharded(torch, dev, train: dict) -> dict:
+    """Phase 15: the LM sharding rules on a DeviceMesh (module
+    docstring)."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import LMTask
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.train import TrainHyper
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = get_config("tinyllama-1.1b")
+    hyper = TrainHyper(peak_lr=3e-4, warmup=2, total_steps=TRAIN_STEPS)
+    task = LMTask(vocab=cfg.vocab, seq_len=SHAPES["train_4k"].seq_len,
+                  batch=TRAIN_BATCH)
+    store = REPO / "build" / "lm_sharded_store"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store / "nccl"),
+                                                         1),
+                            rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = make_mesh_for((1, 1), ("data", "model"))
+        print(f"  mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} over "
+              f"{dist.get_backend()}, world size {dist.get_world_size()}")
+        out["fsdp"] = _sharded_main(torch, dev, mesh, cfg, hyper, task,
+                                    train["main"])
+        torch.cuda.empty_cache()
+        out["dptp"] = _sharded_compressed(torch, dev, mesh, cfg, hyper, task,
+                                          train["compressed"])
+        torch.cuda.empty_cache()
+        out["cut"] = _sharded_cut(torch, dev, mesh, cfg, hyper)
+        torch.cuda.empty_cache()
+        out["gloo_ranks"] = _sharded_ranks(torch, dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 15: {out['seconds']:.1f} s")
     return out
 
 
@@ -3904,6 +4397,7 @@ def main() -> int:
     mixers = phase_lm_mixers(torch, dev)
     multimodal = phase_lm_multimodal(torch, dev)
     train = phase_lm_train(torch, dev)
+    lm_sharded = phase_lm_sharded(torch, dev, train)
     # each kernel's launches on every path, each counted from zero;
     # ``launches`` is its main path's: the fleet's three, and the sampler's
     # entry point
@@ -3932,7 +4426,13 @@ def main() -> int:
                "lm_train_fault_tolerance":
                    train["fault_tolerance"]["launches"],
                "lm_train_compressed": train["compressed"]["launches"],
-               "lm_train_gloo_rank0": train["gloo_ranks"]["launches"]}
+               "lm_train_gloo_rank0": train["gloo_ranks"]["launches"],
+               "lm_sharded_fsdp": lm_sharded["fsdp"]["launches"],
+               "lm_sharded_dptp": lm_sharded["dptp"]["launches"],
+               "lm_sharded_fault_tolerance": lm_sharded["cut"]["launches"]}
+    if lm_sharded["gloo_ranks"]["ran"]:
+        by_path["lm_sharded_gloo_rank0"] = lm_sharded["gloo_ranks"][
+            "launches"]
     launches = dict(fleet_launches,
                     importance_select=importance["importance_select"])
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -3947,7 +4447,8 @@ def main() -> int:
              fleet=fleet, scarce_fleet=scarce, task_fleet=task_fleet,
              streamed=streamed, host_serve=host_serve, sharded=sharded,
              paper_path=paper, lm_serve=lm, lm_mixers=mixers,
-             lm_multimodal=multimodal, lm_train=train),
+             lm_multimodal=multimodal, lm_train=train,
+             lm_sharded=lm_sharded),
         indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -3964,6 +4465,10 @@ if __name__ == "__main__":
         sys.exit(bf16_drift(sys.argv[2:]))
     if sys.argv[1:2] == ["--train-rank"]:
         sys.exit(_train_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--lm-shard-rank"]:
+        sys.exit(_lm_shard_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--lm-shard-probe"]:
+        sys.exit(_lm_shard_rank(sys.argv[2:], probe=True))
     if sys.argv[1:2] == ["--train-drift"]:
         sys.exit(train_drift(sys.argv[2:]))
     sys.exit(main())

@@ -157,29 +157,42 @@ def _leaf(x, device=None) -> torch.Tensor:
     return torch.as_tensor(a, device=device)
 
 
-def lm_params(tree, device=None):
-    """``repro.models.init_params``'s LM parameter tree (``embed``,
-    ``final_norm``, ``unembed``, ``runs`` of stacked leaves, ``encoder``
-    with its own ``runs`` and ``final_norm``) -> the port's tree of the
-    same names and layouts, each leaf's dtype kept."""
+def _tree(tree, device=None):
     if isinstance(tree, dict):
-        return {k: lm_params(v, device) for k, v in tree.items()}
+        return {k: _tree(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [lm_params(v, device) for v in tree]
+        return [_tree(v, device) for v in tree]
     return _leaf(tree, device)
 
 
-def train_state(tree, device=None) -> dict:
+def lm_params(tree, device=None, shardings=None):
+    """``repro.models.init_params``'s LM parameter tree (``embed``,
+    ``final_norm``, ``unembed``, ``runs`` of stacked leaves, ``encoder``
+    with its own ``runs`` and ``final_norm``) -> the port's tree of the
+    same names and layouts, each leaf's dtype kept.  With ``shardings``
+    (a ``NamedSharding`` tree, :func:`repro_torch.sharding.
+    tree_named_shardings`) each leaf is placed on its mesh as a DTensor,
+    every rank keeping its shard."""
+    out = _tree(tree, device)
+    if shardings is not None:
+        from .sharding import place
+        out = place(out, shardings)
+    return out
+
+
+def train_state(tree, device=None, shardings=None) -> dict:
     """``repro.train.init_train_state``'s state — ``{"params", "opt": {"m",
     "v", "step"}}`` and, under error feedback, ``"ef"`` — as the port's,
-    each leaf's dtype kept (the int32 step a 0-dim tensor)."""
-    return lm_params(tree, device)
+    each leaf's dtype kept (the int32 step a 0-dim tensor), placed by
+    ``shardings`` as :func:`lm_params` places."""
+    return lm_params(tree, device, shardings)
 
 
 def to_numpy(tree):
     """The port's NamedTuples, dicts, lists and tensors as numpy arrays, in
     the same structure (``None`` stays ``None``; a bfloat16 tensor comes
-    back as float32, which holds it exactly), for comparing with JAX."""
+    back as float32, which holds it exactly; a DTensor as its whole
+    tensor, a collective), for comparing with JAX."""
     if tree is None:
         return None
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -188,5 +201,8 @@ def to_numpy(tree):
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [to_numpy(x) for x in tree]
+    from .sharding import is_dtensor
+    if is_dtensor(tree):
+        tree = tree.full_tensor()
     t = tree.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

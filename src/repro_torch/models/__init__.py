@@ -7,6 +7,7 @@ from .har import (  # noqa: F401
     har_apply_quantized_nodes, quantize_params,
 )
 from .transformer import (  # noqa: F401
-    build_mrope_positions, compute_params, decode_step, forward, init_cache,
-    init_params, model_param_shapes,
+    abstract_cache, abstract_params, build_mrope_positions, cache_specs,
+    compute_params, decode_step, forward, init_cache, init_params,
+    model_param_shapes, param_specs,
 )

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import MoEConfig
+from ..sharding import constrain
 
 __all__ = ["MoERoute", "moe_capacity", "moe_param_shapes", "moe_route",
            "moe_apply"]
@@ -43,18 +44,19 @@ def moe_capacity(m: MoEConfig, group_size: int) -> int:
 
 
 def moe_param_shapes(d_model: int, m: MoEConfig) -> dict[str, tuple]:
-    """name -> shape, in the reference's order."""
+    """name -> (shape, logical spec), in the reference's order."""
+    e, f = m.n_experts, m.d_expert
     shapes = {
-        "router": (d_model, m.n_experts),
-        "w_gate": (m.n_experts, d_model, m.d_expert),
-        "w_up": (m.n_experts, d_model, m.d_expert),
-        "w_down": (m.n_experts, m.d_expert, d_model),
+        "router": ((d_model, e), ("embed", "experts")),
+        "w_gate": ((e, d_model, f), ("experts", "embed", "expert_ff")),
+        "w_up": ((e, d_model, f), ("experts", "embed", "expert_ff")),
+        "w_down": ((e, f, d_model), ("experts", "expert_ff", "embed")),
     }
     if m.n_shared:
-        ds = m.n_shared * m.d_expert
-        shapes.update({"shared_gate": (d_model, ds),
-                       "shared_up": (d_model, ds),
-                       "shared_down": (ds, d_model)})
+        ds = m.n_shared * f
+        shapes.update({"shared_gate": ((d_model, ds), ("embed", "ff")),
+                       "shared_up": ((d_model, ds), ("embed", "ff")),
+                       "shared_down": ((ds, d_model), ("ff", "embed"))})
     return shapes
 
 
@@ -110,6 +112,7 @@ def moe_apply(params: dict, x: torch.Tensor, m: MoEConfig,
     buf[rows.reshape(-1)] = xt[:, :, None].expand(
         g, group, m.top_k, d).reshape(-1, d)
     expert_in = buf.reshape(g, e * cap + 1, d)[:, :-1].reshape(g, e, cap, d)
+    expert_in = constrain(expert_in, None, "experts", None, "embed_act")
 
     gate = torch.einsum("gecd,edf->gecf", expert_in, params["w_gate"].to(dt))
     up = torch.einsum("gecd,edf->gecf", expert_in, params["w_up"].to(dt))

@@ -30,17 +30,26 @@ _C = 8.0
 
 
 def rglru_param_shapes(cfg: ModelConfig) -> dict[str, tuple]:
+    """name -> (shape, logical spec), in the reference's order."""
     d, w, cw = cfg.d_model, cfg.rnn_width, cfg.conv_width
     return {
-        "w_x": (d, w), "w_g": (d, w), "conv_w": (cw, w), "lam": (w,),
-        "w_a": (w, w), "b_a": (w,), "w_i": (w, w), "b_i": (w,),
-        "w_o": (w, d),
+        "w_x": ((d, w), ("embed", "state")),
+        "w_g": ((d, w), ("embed", "state")),
+        "conv_w": ((cw, w), ("conv", "state")),
+        "lam": ((w,), ("state",)),
+        "w_a": ((w, w), ("state", None)),
+        "b_a": ((w,), ("state",)),
+        "w_i": ((w, w), ("state", None)),
+        "b_i": ((w,), ("state",)),
+        "w_o": ((w, d), ("state", "embed")),
     }
 
 
 def rglru_state_shapes(cfg: ModelConfig, batch: int) -> dict[str, tuple]:
-    return {"h": (batch, cfg.rnn_width),
-            "conv_buf": (batch, cfg.conv_width - 1, cfg.rnn_width)}
+    """name -> (shape, logical spec) of the decode state."""
+    return {"h": ((batch, cfg.rnn_width), ("batch", "state")),
+            "conv_buf": ((batch, cfg.conv_width - 1, cfg.rnn_width),
+                         ("batch", None, "state"))}
 
 
 def _gates(p: dict, xt: torch.Tensor):

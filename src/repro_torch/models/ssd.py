@@ -24,21 +24,32 @@ __all__ = ["ssd_param_shapes", "ssd_state_shapes", "ssd_apply",
 
 
 def ssd_param_shapes(cfg: ModelConfig) -> dict[str, tuple]:
+    """name -> (shape, logical spec), in the reference's order."""
     d, di = cfg.d_model, cfg.d_inner
     g, n, h = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     return {
-        "w_z": (d, di), "w_x": (d, di), "w_B": (d, g * n), "w_C": (d, g * n),
-        "w_dt": (d, h), "dt_bias": (h,), "A_log": (h,), "D": (h,),
-        "norm_scale": (di,), "w_out": (di, d),
-        "conv_w": (cfg.conv_width, di + 2 * g * n),
+        "w_z": ((d, di), ("embed", "state")),
+        "w_x": ((d, di), ("embed", "state")),
+        "w_B": ((d, g * n), ("embed", None)),
+        "w_C": ((d, g * n), ("embed", None)),
+        "w_dt": ((d, h), ("embed", None)),
+        "dt_bias": ((h,), (None,)),
+        "A_log": ((h,), (None,)),
+        "D": ((h,), (None,)),
+        "norm_scale": ((di,), ("state",)),
+        "w_out": ((di, d), ("state", "embed")),
+        "conv_w": ((cfg.conv_width, di + 2 * g * n), ("conv", None)),
     }
 
 
 def ssd_state_shapes(cfg: ModelConfig, batch: int) -> dict[str, tuple]:
+    """name -> (shape, logical spec) of the decode state."""
     g, n = cfg.ssm_groups, cfg.ssm_state
     return {
-        "ssm": (batch, g, cfg.ssm_heads // g, cfg.ssm_headdim, n),
-        "conv_buf": (batch, cfg.conv_width - 1, cfg.d_inner + 2 * g * n),
+        "ssm": ((batch, g, cfg.ssm_heads // g, cfg.ssm_headdim, n),
+                ("batch", None, "heads", None, None)),
+        "conv_buf": ((batch, cfg.conv_width - 1, cfg.d_inner + 2 * g * n),
+                     ("batch", None, "state")),
     }
 
 

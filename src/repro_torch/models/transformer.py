@@ -19,7 +19,14 @@ checkpoints its scanned layer body.
 * :func:`forward`     — full sequence; ``return_cache=True`` also builds the
   serving cache (prefill).
 * :func:`decode_step` — one token against the cache.
-* :func:`init_params` / :func:`model_param_shapes` / :func:`init_cache`.
+* :func:`init_params` / :func:`abstract_params` / :func:`param_specs` /
+  :func:`model_param_shapes` — the one source of shapes and logical
+  sharding specs, and :func:`init_cache` / :func:`abstract_cache` /
+  :func:`cache_specs` for the decode cache.
+
+Under a :func:`repro_torch.sharding.use_sharding` context with DTensor
+parameters, the activations are redistributed at the reference's
+``constrain`` points; outside one those calls do nothing.
 
 Whisper's encoder and qwen2-vl's vision tower are stubs in the reference:
 ``forward`` takes their precomputed embeddings, ``enc_frames`` (B,
@@ -44,17 +51,25 @@ from .moe import moe_apply, moe_param_shapes
 from .rglru import (rglru_apply, rglru_decode_step, rglru_param_shapes,
                     rglru_state_shapes)
 from .ssd import ssd_apply, ssd_decode_step, ssd_param_shapes, ssd_state_shapes
+from ..sharding import constrain, is_dtensor, place
 
-__all__ = ["PSpec", "model_param_shapes", "init_params", "compute_params",
-           "forward", "decode_step", "init_cache", "build_mrope_positions"]
+__all__ = ["PSpec", "model_param_shapes", "init_params", "abstract_params",
+           "param_specs", "compute_params", "forward", "decode_step",
+           "init_cache", "abstract_cache", "cache_specs",
+           "build_mrope_positions"]
 
 
 class PSpec(NamedTuple):
-    """Declarative parameter leaf: shape + init rule (stacked leaves have
-    ``stacked`` set: their first dimension is the run's layer index)."""
+    """Declarative parameter leaf: shape + logical axes + init rule (a
+    stacked leaf's first logical axis is ``"layers"``, the run's layer
+    index)."""
     shape: tuple[int, ...]
+    logical: tuple[str | None, ...]
     init: str = "normal"
-    stacked: bool = False
+
+    @property
+    def stacked(self) -> bool:
+        return bool(self.logical) and self.logical[0] == "layers"
 
 
 def _act(cfg: ModelConfig):
@@ -68,12 +83,12 @@ def _act(cfg: ModelConfig):
 def _mlp_shapes(cfg: ModelConfig, is_moe: bool) -> dict[str, PSpec]:
     d = cfg.d_model
     if is_moe and cfg.moe is not None:
-        return {k: PSpec(v) for k, v in moe_param_shapes(d, cfg.moe).items()}
+        return {k: PSpec(*v) for k, v in moe_param_shapes(d, cfg.moe).items()}
     sh = {}
     if cfg.mlp in ("swiglu", "geglu"):
-        sh["mlp_gate"] = PSpec((d, cfg.d_ff))
-    sh["mlp_up"] = PSpec((d, cfg.d_ff))
-    sh["mlp_down"] = PSpec((cfg.d_ff, d))
+        sh["mlp_gate"] = PSpec((d, cfg.d_ff), ("embed", "ff"))
+    sh["mlp_up"] = PSpec((d, cfg.d_ff), ("embed", "ff"))
+    sh["mlp_down"] = PSpec((cfg.d_ff, d), ("ff", "embed"))
     return sh
 
 
@@ -84,32 +99,37 @@ _INIT = {"lam": "rglru_lam", "A_log": "ssm_A", "dt_bias": "ssm_dt",
 
 def _attn_shapes(cfg: ModelConfig) -> dict[str, PSpec]:
     d, dh = cfg.d_model, cfg.head_dim
-    return {"wq": PSpec((d, cfg.n_heads, dh)), "wk": PSpec((d, cfg.n_kv, dh)),
-            "wv": PSpec((d, cfg.n_kv, dh)), "wo": PSpec((cfg.n_heads, dh, d))}
+    return {
+        "wq": PSpec((d, cfg.n_heads, dh), ("embed", "heads", "head_dim")),
+        "wk": PSpec((d, cfg.n_kv, dh), ("embed", "kv_heads", "head_dim")),
+        "wv": PSpec((d, cfg.n_kv, dh), ("embed", "kv_heads", "head_dim")),
+        "wo": PSpec((cfg.n_heads, dh, d), ("heads", "head_dim", "embed")),
+    }
 
 
 def _block_shapes(cfg: ModelConfig, kind: str, is_moe: bool,
                   cross: bool = False) -> dict[str, PSpec]:
     d = cfg.d_model
-    sh = {"norm1": PSpec((d,), "zeros")}
+    sh = {"norm1": PSpec((d,), (None,), "zeros")}
     if kind in ("attn", "local"):
         sh.update(_attn_shapes(cfg))
     else:
         shapes = (rglru_param_shapes(cfg) if kind == "rglru"
                   else ssd_param_shapes(cfg))
-        sh.update({k: PSpec(v, _INIT.get(k, "normal"))
+        sh.update({k: PSpec(*v, _INIT.get(k, "normal"))
                    for k, v in shapes.items()})
     if cross:
-        sh["xnorm"] = PSpec((d,), "zeros")
+        sh["xnorm"] = PSpec((d,), (None,), "zeros")
         sh.update({f"x{k}": v for k, v in _attn_shapes(cfg).items()})
     if cfg.mlp != "none" and kind != "ssd":
-        sh["norm2"] = PSpec((d,), "zeros")
+        sh["norm2"] = PSpec((d,), (None,), "zeros")
         sh.update(_mlp_shapes(cfg, is_moe))
     return sh
 
 
 def _stack(sh: dict[str, PSpec], n: int) -> dict[str, PSpec]:
-    return {k: PSpec((n,) + v.shape, v.init, True) for k, v in sh.items()}
+    return {k: PSpec((n,) + v.shape, ("layers",) + v.logical, v.init)
+            for k, v in sh.items()}
 
 
 def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -127,12 +147,12 @@ def model_param_shapes(cfg: ModelConfig) -> dict[str, Any]:
     ``encoder`` holds one stacked run and its ``final_norm``."""
     d = cfg.d_model
     tree: dict[str, Any] = {
-        "embed": PSpec((cfg.padded_vocab, d)),
-        "final_norm": PSpec((d,), "zeros"),
+        "embed": PSpec((cfg.padded_vocab, d), ("vocab", "embed")),
+        "final_norm": PSpec((d,), (None,), "zeros"),
         "runs": [],
     }
     if not cfg.tie_embeddings:
-        tree["unembed"] = PSpec((d, cfg.padded_vocab))
+        tree["unembed"] = PSpec((d, cfg.padded_vocab), ("embed", "vocab"))
     cross = cfg.encoder_layers > 0
     for kind, is_moe, _start, length in pattern_runs(cfg):
         tree["runs"].append(_stack(_block_shapes(cfg, kind, is_moe, cross),
@@ -140,18 +160,21 @@ def model_param_shapes(cfg: ModelConfig) -> dict[str, Any]:
     if cfg.encoder_layers:
         enc = _block_shapes(_encoder_cfg(cfg), "attn", False)
         tree["encoder"] = {"runs": [_stack(enc, cfg.encoder_layers)],
-                           "final_norm": PSpec((d,), "zeros")}
+                           "final_norm": PSpec((d,), (None,), "zeros")}
     return tree
 
 
-def _map_tree(tree, fn, name: str = ""):
-    """``fn(name, leaf)`` over a tree of dicts and lists, ``name`` being the
-    leaf's dict key."""
+def _map_tree(tree, fn, name: str = "", other=None):
+    """``fn(name, leaf)`` over a tree of dicts and lists, in its dicts'
+    order, ``name`` being the leaf's dict key; with ``other``, a tree like
+    ``tree``, ``fn(name, leaf, other's leaf)``."""
     if isinstance(tree, dict):
-        return {k: _map_tree(v, fn, k) for k, v in tree.items()}
+        return {k: _map_tree(v, fn, k, None if other is None else other[k])
+                for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_map_tree(v, fn, name) for v in tree]
-    return fn(name, tree)
+        return [_map_tree(v, fn, name, None if other is None else other[i])
+                for i, v in enumerate(tree)]
+    return fn(name, tree) if other is None else fn(name, tree, other)
 
 
 def _draw(generator: torch.Generator, init: str, shape: tuple,
@@ -196,13 +219,31 @@ def _init_leaf(generator: torch.Generator, p: PSpec,
     return out
 
 
-def init_params(generator: torch.Generator, cfg: ModelConfig) -> dict:
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                shardings=None) -> dict:
     """Random parameters on the generator's device, by the reference's
     laws (not its draws): normal / sqrt(fan_in) weights (an MoE leaf's
     fan-in counts its experts axis), zero norm scales, and the recurrent
-    mixers' ``lam``, ``A_log``, ``dt_bias`` and ``D`` rules."""
-    return _map_tree(model_param_shapes(cfg),
-                     lambda _, p: _init_leaf(generator, p, cfg))
+    mixers' ``lam``, ``A_log``, ``dt_bias`` and ``D`` rules.  With
+    ``shardings``, a tree of ``NamedSharding`` like the parameters, each
+    leaf is placed on its mesh as soon as it is drawn (the same values)."""
+    if shardings is None:
+        return _map_tree(model_param_shapes(cfg),
+                         lambda _, p: _init_leaf(generator, p, cfg))
+    return _map_tree(model_param_shapes(cfg), lambda _, p, sh: place(
+        _init_leaf(generator, p, cfg), sh), other=shardings)
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree as tensors on the ``meta`` device, of
+    ``cfg.param_dtype`` (the reference's ``ShapeDtypeStruct`` tree)."""
+    return _map_tree(model_param_shapes(cfg), lambda _, p: torch.empty(
+        p.shape, dtype=cfg.param_dtype, device="meta"))
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The parameter tree's logical specs (tuples of axis names)."""
+    return _map_tree(model_param_shapes(cfg), lambda _, p: p.logical)
 
 
 _READ_F32 = ("lam", "A_log", "dt_bias")
@@ -254,6 +295,8 @@ def _attn_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     q, k, v = _project_qkv(p, h, F.pad(p["wq"], (0, 0, 0, hp - cfg.n_heads))
                            if expand else p["wq"])
+    q = constrain(q, "batch", "seq", "heads", "head_dim")
+    k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
     if rope is not None:
         q, k = apply_rope(q, *rope), apply_rope(k, *rope)
     if expand:
@@ -262,39 +305,70 @@ def _attn_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
         rep = max(cfg.n_heads // cfg.n_kv, 1)
         kv_map = torch.clamp(torch.arange(hp, device=x.device) // rep,
                              max=cfg.n_kv - 1)
-        k_att, v_att = k[:, :, kv_map], v[:, :, kv_map]
+        k_att = constrain(k[:, :, kv_map], "batch", "seq", "heads", "head_dim")
+        v_att = constrain(v[:, :, kv_map], "batch", "seq", "heads", "head_dim")
         q5 = q.reshape(b, s, hp, 1, cfg.head_dim)
     else:
         k_att, v_att = k, v
         q5 = q.reshape(b, s, cfg.n_kv, cfg.n_heads // cfg.n_kv, cfg.head_dim)
     window = cfg.window if kind == "local" else None
-    if not causal:
-        out = dense_attention(q5, k_att, v_att, causal=False,
-                              softcap=cfg.attn_softcap)
-    elif s <= cfg.dense_attn_max_seq and (window is None
-                                          or not cfg.flash_attention):
-        out = dense_attention(q5, k_att, v_att, window=window,
-                              softcap=cfg.attn_softcap)
-    elif window is not None:
-        if cfg.flash_attention:
-            out = flash_banded_attention(q5, k_att, v_att, window,
-                                         _pick_chunk(s, cfg.attn_chunk),
-                                         cfg.attn_softcap)
-        else:
-            out = banded_attention(q5, k_att, v_att, window=window,
-                                   chunk=cfg.attn_chunk,
+
+    def attend(q5, k_att, v_att):
+        if not causal:
+            return dense_attention(q5, k_att, v_att, causal=False,
                                    softcap=cfg.attn_softcap)
-    elif cfg.flash_attention:
-        out = flash_causal_attention(q5, k_att, v_att,
-                                     _pick_chunk(s, cfg.attn_chunk),
-                                     cfg.attn_softcap)
-    else:
-        out = pair_chunked_attention(q5, k_att, v_att, chunk=cfg.attn_chunk,
-                                     softcap=cfg.attn_softcap)
+        if s <= cfg.dense_attn_max_seq and (window is None
+                                            or not cfg.flash_attention):
+            return dense_attention(q5, k_att, v_att, window=window,
+                                   softcap=cfg.attn_softcap)
+        if window is not None:
+            if cfg.flash_attention:
+                return flash_banded_attention(
+                    q5, k_att, v_att, window, _pick_chunk(s, cfg.attn_chunk),
+                    cfg.attn_softcap)
+            return banded_attention(q5, k_att, v_att, window=window,
+                                    chunk=cfg.attn_chunk,
+                                    softcap=cfg.attn_softcap)
+        if cfg.flash_attention:
+            return flash_causal_attention(q5, k_att, v_att,
+                                          _pick_chunk(s, cfg.attn_chunk),
+                                          cfg.attn_softcap)
+        return pair_chunked_attention(q5, k_att, v_att,
+                                      chunk=cfg.attn_chunk,
+                                      softcap=cfg.attn_softcap)
+
+    out = _local_attention(attend, q5, k_att, v_att)
     out = out.reshape(b, s, hp, cfg.head_dim)
     wo = (F.pad(p["wo"], (0, 0, 0, 0, 0, hp - cfg.n_heads)) if expand
           else p["wo"])
     return torch.einsum("bshk,hkd->bsd", out, wo.to(x.dtype)), (k, v)
+
+
+def _local_attention(attend, q5: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """``attend(q5, k, v)`` -> (B, S, G, R, Dh).  On DTensors each rank
+    attends on its local tensors (the flash walks and the chunked loops
+    run as plain tensor code): its rows of the batch (dim 0) and its KV
+    groups (dim 2) or q heads within a group (q5's dim 3), the splits
+    attention is independent across; any other split of the inputs is
+    gathered first.  Where the q heads within a group are split, every
+    rank reads the whole K/V, and its K/V gradient is its heads' part of
+    the sum (``Partial``).  Plain tensors go straight through."""
+    if not is_dtensor(q5):
+        return attend(q5, k, v)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    def keep(p, dims):
+        return p if isinstance(p, Shard) and p.dim in dims else Replicate()
+
+    qp = [keep(p, (0, 2, 3)) for p in q5.placements]
+    kp = [keep(p, (0, 2)) for p in qp]
+    kg = [Partial() if q != k else k for q, k in zip(qp, kp)]
+    return local_map(attend, out_placements=qp, in_placements=(qp, kp, kp),
+                     in_grad_placements=(qp, kg, kg),
+                     redistribute_inputs=True,
+                     device_mesh=q5.device_mesh)(q5, k, v)
 
 
 def _cross_attn(p: dict, x: torch.Tensor, enc_kv, cfg: ModelConfig):
@@ -328,6 +402,7 @@ def _mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
         inner = _act(cfg)(h @ p["mlp_gate"].to(dt), h @ p["mlp_up"].to(dt))
     else:
         inner = F.gelu(h @ p["mlp_up"].to(dt), approximate="tanh")
+    inner = constrain(inner, "batch", "seq", "ff")
     return inner @ p["mlp_down"].to(dt)
 
 
@@ -355,7 +430,7 @@ def _block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
         aux["xk"], aux["xv"] = enc_kv
     if cfg.mlp != "none" and kind != "ssd":
         x = x + _mlp(p, x, cfg, is_moe)
-    return x, aux
+    return constrain(x, "batch", "seq", "embed_act"), aux
 
 
 def _remat_block(p: dict, x: torch.Tensor, cfg: ModelConfig, remat: str,
@@ -400,6 +475,7 @@ def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Unembed + optional softcap + padded-vocab mask.  x: (B, S, D)."""
     unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     logits = torch.einsum("bsd,dv->bsv", x, unembed.to(cfg.dtype))
+    logits = constrain(logits, "batch", "seq", "vocab")
     if cfg.logit_softcap > 0:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     if cfg.padded_vocab != cfg.vocab:
@@ -501,6 +577,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         if enc_frames is None:
             raise ValueError(f"{cfg.name} has an encoder: pass enc_frames")
         enc_out = _encode(params, cfg, enc_frames)
+    x = constrain(x, "batch", "seq", "embed_act")
     run_caches = []
     for run_idx, (kind, is_moe, _start, length) in enumerate(
             pattern_runs(cfg)):
@@ -554,23 +631,42 @@ def _prefill_run_cache(auxs: list, cfg: ModelConfig, kind: str,
 
 
 # ---------------------------------------------------------------------------
-# Cache init
+# Cache init / specs
 # ---------------------------------------------------------------------------
 
 def _run_cache_shapes(cfg: ModelConfig, kind: str, length: int, batch: int,
                       max_len: int) -> dict[str, tuple]:
+    """name -> (shape, logical spec) of one run's cache leaves."""
+    g, dh = cfg.n_kv, cfg.head_dim
     if kind in ("attn", "local"):
         w = min(cfg.window, max_len) if kind == "local" else max_len
-        shape = (length, batch, w, cfg.n_kv, cfg.head_dim)
-        out = {"k": shape, "v": shape}
+        # kv_heads shards when divisible; kv_seq (split-KV) otherwise —
+        # spec_for's first-win drop keeps one of them on "model"
+        kv_spec = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+        if g % 16 == 0:
+            kv_spec = ("layers", "batch", None, "kv_heads", "head_dim")
+        out = {"k": ((length, batch, w, g, dh), kv_spec),
+               "v": ((length, batch, w, g, dh), kv_spec)}
         if cfg.encoder_layers:
-            cross = (length, batch, cfg.encoder_frames, cfg.n_kv,
-                     cfg.head_dim)
-            out.update(xk=cross, xv=cross)
+            cross = (length, batch, cfg.encoder_frames, g, dh)
+            out.update(xk=(cross, kv_spec), xv=(cross, kv_spec))
         return out
     base = (rglru_state_shapes(cfg, batch) if kind == "rglru"
             else ssd_state_shapes(cfg, batch))
-    return {k: (length,) + v for k, v in base.items()}
+    return {k: ((length,) + sh, ("layers",) + spec)
+            for k, (sh, spec) in base.items()}
+
+
+def _cache_tree(cfg: ModelConfig, batch: int, max_len: int, fn) -> dict:
+    """``fn(shape, spec)`` at each leaf of the cache tree."""
+    runs = [{k: fn(*v) for k, v in _run_cache_shapes(
+        cfg, kind, length, batch, max_len).items()}
+        for kind, _moe, _start, length in pattern_runs(cfg)]
+    out = {"pos": fn((), (None,)), "runs": runs}
+    if cfg.encoder_layers:
+        out["enc_out"] = fn((batch, cfg.encoder_frames, cfg.d_model),
+                            ("batch", None, "embed_act"))
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
@@ -579,17 +675,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
     for a local run) and with an encoder xk/xv (L, B, encoder_frames, G,
     Dh), per recurrent run its zero states, with an encoder ``enc_out``
     (B, encoder_frames, D), and an int32 ``pos`` of 0."""
-    runs = [{k: torch.zeros(v, dtype=cfg.dtype, device=device)
-             for k, v in _run_cache_shapes(cfg, kind, length, batch,
-                                           max_len).items()}
-            for kind, _moe, _start, length in pattern_runs(cfg)]
-    cache = {"pos": torch.zeros((), dtype=torch.int32, device=device),
-             "runs": runs}
-    if cfg.encoder_layers:
-        cache["enc_out"] = torch.zeros(
-            (batch, cfg.encoder_frames, cfg.d_model), dtype=cfg.dtype,
-            device=device)
-    return cache
+    return _cache_tree(cfg, batch, max_len, lambda sh, _: torch.zeros(
+        sh, dtype=torch.int32 if sh == () else cfg.dtype, device=device))
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """:func:`init_cache`'s tree as ``meta`` tensors."""
+    return init_cache(cfg, batch, max_len, "meta")
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The cache tree's logical specs (``pos``'s is ``(None,)``, as in the
+    reference)."""
+    return _cache_tree(cfg, batch, max_len, lambda _, spec: spec)
 
 
 # ---------------------------------------------------------------------------
@@ -640,7 +738,8 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     pos = cache["pos"]
     b = tokens.shape[0]
     positions = pos.expand(b, 1)
-    x = _embed_tokens(params, cfg, tokens, positions)
+    x = constrain(_embed_tokens(params, cfg, tokens, positions),
+                  "batch", "seq", "embed_act")
     cross = "enc_out" in cache
     for run_idx, (kind, is_moe, _start, length) in enumerate(
             pattern_runs(cfg)):

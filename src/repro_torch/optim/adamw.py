@@ -4,8 +4,10 @@ PyTorch counterpart of :mod:`repro.optim.adamw`: the same update in float32,
 leaf by leaf over the state tree.  Weight decay applies to the leaves of
 two or more dimensions of the *stacked* tree (``convert.lm_params``'
 layout), so the stacked norm scales ``(layers, d)`` decay and
-``final_norm`` does not, as in the reference.  ``opt_state_specs`` waits
-for the LM sharding rules (ROADMAP Queue 1 item 6.4).
+``final_norm`` does not, as in the reference.  The moments inherit each
+parameter's logical spec (:func:`opt_state_specs`), so on a placed state
+they are DTensors on the parameter's placements and the update runs shard
+by shard.
 """
 from __future__ import annotations
 
@@ -13,9 +15,11 @@ import dataclasses
 
 import torch
 
+from ..sharding import is_dtensor, is_spec
 from ..tree import leaves, tree_map, unflatten_like
 
-__all__ = ["OptConfig", "adamw_init", "adamw_update", "global_norm"]
+__all__ = ["OptConfig", "adamw_init", "adamw_update", "opt_state_specs",
+           "global_norm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,22 +33,41 @@ class OptConfig:
 
 
 def adamw_init(params, cfg: OptConfig) -> dict:
-    """Zero moments in ``cfg.moment_dtype`` beside each parameter, and an
-    int32 step of 0."""
+    """Zero moments in ``cfg.moment_dtype`` beside each parameter (on a
+    DTensor parameter's placements), and an int32 step of 0."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+        return torch.zeros_like(p, dtype=cfg.moment_dtype)
 
     step_device = leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=step_device)}
 
 
+def opt_state_specs(param_spec_tree) -> dict:
+    """Logical specs of the optimizer state: the moments mirror the
+    parameters, the step is a scalar (``()``)."""
+    def copy(t):
+        if is_spec(t):
+            return t
+        if isinstance(t, dict):
+            return {k: copy(v) for k, v in t.items()}
+        return [copy(v) for v in t]
+
+    return {"m": copy(param_spec_tree), "v": copy(param_spec_tree),
+            "step": ()}
+
+
 def global_norm(tree) -> torch.Tensor:
     """The float32 L2 norm of all leaves, summed leaf by leaf in
-    ``jax.tree_util``'s order."""
+    ``jax.tree_util``'s order.  A DTensor leaf's sum of squares is that of
+    the whole leaf (its shards' sums reduced) before it joins the total,
+    so the total is plain and the order is the tree's."""
     total = 0
     for leaf in leaves(tree):
-        total = total + torch.sum(torch.square(leaf.float()))
+        part = torch.sum(torch.square(leaf.float()))
+        if is_dtensor(part):
+            part = part.full_tensor()
+        total = total + part
     return torch.sqrt(total)
 
 

@@ -91,7 +91,7 @@ def _run_once(state, step0: int, train_step: Callable, batch_fn: Callable,
 
 
 def run_training(state, train_step: Callable, batch_fn: Callable,
-                 loop: TrainLoopConfig, budget_trace=None):
+                 loop: TrainLoopConfig, budget_trace=None, shardings=None):
     """Run to ``total_steps`` with restart-on-preemption.
 
     Args:
@@ -102,6 +102,10 @@ def run_training(state, train_step: Callable, batch_fn: Callable,
         loop: loop config.
         budget_trace: the µJ harvested before each step (``total_steps``
             entries at least) in place of ``loop.budget_source``'s trace.
+        shardings: a ``NamedSharding`` tree like ``state`` for an elastic
+            restore onto a mesh (a placed state's own placements are kept
+            without it).  A sharded run is a collective: every rank calls
+            it, and checkpoints are written by rank 0.
 
     Returns (final_state, log: list of metric dicts incl. restart events).
     """
@@ -114,7 +118,7 @@ def run_training(state, train_step: Callable, batch_fn: Callable,
     if loop.ckpt_dir:
         s = latest_step(loop.ckpt_dir)
         if s is not None:
-            state = restore_checkpoint(loop.ckpt_dir, s, template)
+            state = restore_checkpoint(loop.ckpt_dir, s, template, shardings)
             step0 = s
             log.append({"event": "resume", "step": s})
     while True:
@@ -132,7 +136,8 @@ def run_training(state, train_step: Callable, batch_fn: Callable,
             if s is None:
                 step0 = 0           # nothing saved yet: restart from scratch
             else:
-                state = restore_checkpoint(loop.ckpt_dir, s, template)
+                state = restore_checkpoint(loop.ckpt_dir, s, template,
+                                           shardings)
                 step0 = s
                 log.append({"event": "resume", "step": s})
     if loop.ckpt_dir:

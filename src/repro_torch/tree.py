@@ -4,7 +4,9 @@ The training state is a tree of dicts and lists with tensors at its leaves,
 the layout of the reference's pytrees.  JAX flattens a dict by its sorted
 keys and a list or tuple in order; the global gradient norm sums its leaves
 in that order and a checkpoint names each leaf by its key path, so both
-sides walk a tree the same way through these helpers.
+sides walk a tree the same way through these helpers.  A DTensor is a
+leaf like any tensor (its whole value is ``full_tensor()``, a
+collective; ``convert.to_numpy`` takes that).
 """
 from __future__ import annotations
 

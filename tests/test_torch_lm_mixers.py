@@ -188,7 +188,8 @@ def _jax_route(params, x, m):
 
 def _moe_case(m, act, seed, x_scale=1.0, router=None):
     rng = np.random.default_rng(seed)
-    p = _leaves(tmoe.moe_param_shapes(32, m), rng)
+    p = _leaves({k: v[0] for k, v in tmoe.moe_param_shapes(32, m).items()},
+                rng)
     if router is not None:
         p["router"] = router
     x = (x_scale * rng.standard_normal((2, 24, 32))).astype(np.float32)
@@ -273,7 +274,7 @@ def _block(kind, s, seed):
     cfg = RG_CFG if kind == "rglru" else SSD_CFG
     shapes = (trglru.rglru_param_shapes(cfg) if kind == "rglru"
               else tssd.ssd_param_shapes(cfg))
-    p = _leaves(shapes, rng)
+    p = _leaves({k: v[0] for k, v in shapes.items()}, rng)
     x = rng.standard_normal((2, s, 32)).astype(np.float32)
     return (cfg, {k: jnp.asarray(v) for k, v in p.items()},
             {k: torch.as_tensor(v) for k, v in p.items()}, x)

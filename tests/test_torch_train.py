@@ -181,7 +181,28 @@ _GRAD_CASES = {
     "gemma3-12b": FLASH,
     "gemma3-12b+remat": dict(FLASH, remat="full"),
     "gemma-2b-padded": FLASH,
+    # the MoE, RG-LRU, SSD, encoder-decoder and M-RoPE mixers
+    "deepseek-moe-16b": {},
+    "grok-1-314b": {},
+    "recurrentgemma-2b": {},
+    "mamba2-130m": {},
+    "whisper-small": {},
+    "qwen2-vl-2b": {},
 }
+
+
+def _extras(cfg, b, seed=5) -> dict:
+    """Standard-normal ``enc_frames`` for an encoder config and
+    ``patch_embeds`` for a vision config, (B, frames or patches, D)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.encoder_layers:
+        out["enc_frames"] = rng.standard_normal(
+            (b, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+    if cfg.vision_patches:
+        out["patch_embeds"] = rng.standard_normal(
+            (b, cfg.vision_patches, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def _case_cfg(case):
@@ -195,16 +216,20 @@ def test_loss_and_grads_match_jax(case):
     against ``jax.value_and_grad`` of JAX's loss: through both flash
     backward walks (gemma3's local layers take the banded walk, its
     global layer the causal one; 32 tokens in chunks of 16), under remat,
-    on the dense path, and with padded q-heads and vocabulary.  Grads
-    within atol 1e-5 (their largest magnitudes are 0.1-1)."""
+    on the dense path, and with padded q-heads and vocabulary; and the
+    smoke configs of the MoE FFN (deepseek with shared experts, grok with
+    softcaps), RG-LRU, SSD, whisper's encoder-decoder (with its frames)
+    and qwen2-vl's M-RoPE (with its patches, only the text scored).
+    Grads within atol 1e-5 (their largest magnitudes are 0.1-1)."""
     cfg = _case_cfg(case)
     jp, tp = _params(cfg)
-    toks = _tokens(cfg, 2, 33)
+    batch = dict(tokens=_tokens(cfg, 2, 33), **_extras(cfg, 2))
     (jl, _), jg = jax.value_and_grad(jtrain.make_loss_fn(_jcfg(cfg)),
                                      has_aux=True)(
-        jp, {"tokens": jnp.asarray(toks)})
-    tl, aux, tg = ttrain.value_and_grad(ttrain.make_loss_fn(cfg), tp,
-                                        {"tokens": torch.as_tensor(toks)})
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    tl, aux, tg = ttrain.value_and_grad(
+        ttrain.make_loss_fn(cfg), tp,
+        {k: torch.as_tensor(v) for k, v in batch.items()})
     _close(tl, jl)
     assert torch.equal(aux["loss"], tl)
     _tree_close(tg, jg)
@@ -530,8 +555,24 @@ def test_train_launcher_runs_on_the_cpu(extra, tmp_path, capsys):
 
 def test_train_launcher_refuses_what_waits_for_the_sharding_rules(
         monkeypatch):
-    with pytest.raises(NotImplementedError, match="6.4"):
-        tlaunch.main(["--smoke", "--device", "cpu", "--multi-pod"])
+    """``--smoke --multi-pod`` runs as the reference's smoke branch does
+    (the flag ignored, one rank, the plain step); without ``--smoke`` a
+    world that is neither one rank nor the production mesh's size raises
+    ``ValueError`` naming both sizes, before anything is built; without a
+    card the default device raises."""
+    state, log = tlaunch.main(["--smoke", "--device", "cpu", "--multi-pod",
+                               "--steps", "2", "--seq", "16", "--batch",
+                               "2"])
+    assert [m["step"] for m in log if "loss" in m] == [0, 1]
+    assert int(state["opt"]["step"]) == 2
+    with monkeypatch.context() as m:
+        m.setattr(tlaunch, "_group", lambda dev: "WORLD")
+        m.setattr(tlaunch, "_world_size", lambda group: 4)
+        with pytest.raises(ValueError, match=r"\(16, 16\) holds 256 .* 4"):
+            tlaunch.main(["--device", "cpu", "--steps", "1"])
+        with pytest.raises(ValueError,
+                           match=r"\(2, 16, 16\) holds 512 .* 4"):
+            tlaunch.main(["--device", "cpu", "--multi-pod", "--compress-grads"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tlaunch.main(["--smoke", "--steps", "1"])
