@@ -79,7 +79,17 @@ Phases (any failure exits non-zero and prints no result):
    the card (this script again, ``--sharded-rank``) on a (2, 2) ("pod",
    "data") mesh at N=3001 (3 padding nodes), S=4, each rank's result equal
    to a one-rank run; with ms/slot, device busy, launches and
-   synchronisations a slot, and the collectives' time;
+   synchronisations a slot, and the collectives' time; (c) per-node keyed
+   noise (``fleet_node_keys``, ``node_keys=``): the keys and one slot's
+   hash words and uniforms bitwise equal to a CPU run's at N=3000, phase
+   4's bare fleet keyed (S=8) against a CPU plain run (decisions on at
+   least 99% of node-slots, final keys bitwise), the world-size-1 NCCL
+   sharded keyed run with every lane bitwise the single-device keyed run
+   (logits included), the streamed driver's two 4-slot segments chained
+   through ``final_keys`` bitwise the 8-slot run, and (b)'s 4 gloo ranks
+   keyed at N=3001 equal to a one-rank keyed run; with ms/slot keyed
+   against the generator and the noise bytes a rank draws (its tile
+   against the whole fleet);
 10. the paper's per-sensor path: (a) the oracle
    ``seeker_simulate_reference`` at HAR's full width with an AAC table, 3
    sensors on a 128-window stream under the wifi and piezo sources,
@@ -204,10 +214,29 @@ Phases (any failure exits non-zero and prints no result):
    the card (a probe in each rank decides; otherwise left out, with the
    reason printed); the four hand kernels' launches must be 0 on every
    path;
-16. the kernel table as one JSON line (each kernel's launches on every
+16. the dry run (``repro_torch.launch.dryrun``, meta tensors on fake
+   process groups, no card): (a) four cells, each in a process of its own
+   (``python -m repro_torch.launch.dryrun``), all at once: tinyllama-1.1b
+   ``decode_32k`` on the (16, 16) mesh, mamba2-130m ``decode_32k`` on the
+   (2, 16, 16) mesh, tinyllama-1.1b ``train_4k`` (FSDP) and the same cell
+   with ``--rules dp_tp --compress``, each ``ok`` with its per-device
+   FLOPs, argument and temporary bytes, collective bytes by kind,
+   roofline row (``launch/roofline.py``, the H100's figures) and trace
+   seconds, the decode cells within 80 GB a card; and the reference's own
+   compression check (its tiny model on an (8,) ("data",) mesh: the
+   compressed step's collective bytes under the dense step's all-reduce
+   bytes; this script again, ``--dryrun-compress OUT``); (b) phase 14's
+   own cell (batch 8 x 4096, world of one) counted in this process and
+   held to what phase 14 measured: its FLOPs within ``DRYRUN_FLOPS_REL``
+   of ``_train_bounds``' operations, its argument plus temporary bytes
+   within ``DRYRUN_MEM_REL`` of phase 14's peak device memory less what
+   was resident before the loop (the loop keeps its initial state, the
+   restore template, beside the step's own state); no hand kernel runs;
+17. the kernel table as one JSON line (each kernel's launches on every
    path, ``per_sensor_oracle``, ``bearing_step``, ``codecs``, ``lm_serve``,
-   the ``lm_mixers_*``, ``lm_multimodal_*``, ``lm_train*`` and
-   ``lm_sharded_*`` cells among them), then the result line.
+   the ``lm_mixers_*``, ``lm_multimodal_*``, ``lm_train*``,
+   ``lm_sharded_*``, ``sharded_keyed`` and ``dryrun`` cells among them),
+   then the result line.
 
 ``python3 chip_smoke.py --bf16-drift [ARCH ...]`` runs, on the CPU, the
 estimate phase 12's bfloat16 bounds were set from (``bf16_drift``), and
@@ -237,6 +266,8 @@ IMPORTANCE_M = 20              # the HAR sampling points
 HOST_K, HOST_SLOTS = 12, 8     # phase 8: HAR's k, and the slots served
 # phase 9 (b): gloo ranks sharing the card, a fleet that does not divide
 SHARD_RANKS, SHARD_GLOO_N, SHARD_GLOO_SLOTS = 4, 3001, 4
+# phase 9 (c): the per-node keys' seed and the streamed driver's segment
+KEY_SEED, KEY_CHUNK = 14, 4
 # configs/seeker_har.py BEARING: 120-sample windows, 1 channel, and
 # SYSTEM.bearing_clusters
 BEARING_T, BEARING_K = 120, 18
@@ -306,6 +337,17 @@ SHARD_STEPS, SHARD_REL, SHARD_CMP_STEPS = 4, 1e-6, 2
 SHARD_RANKS4, SHARD_RANK_STEPS, SHARD_RANK_BATCH = 4, 2, 4
 SHARD_RANK_REL = 1e-5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+# phase 16: the dry run's cells (arch, shape, mesh, flags, tag), each in a
+# process of its own, and (b)'s bounds against phase 14's measurement
+DRYRUN_CELLS = (
+    ("tinyllama-1.1b", "decode_32k", "single", (), "chip"),
+    ("mamba2-130m", "decode_32k", "multi", (), "chip"),
+    ("tinyllama-1.1b", "train_4k", "single", (), "chip"),
+    ("tinyllama-1.1b", "train_4k", "single", ("--rules", "dp_tp",
+                                              "--compress"), "chipcmp"),
+)
+DRYRUN_MEM_REL, DRYRUN_FLOPS_REL = 0.10, 0.15
+HBM_CARD_BYTES = 80e9
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 on the tensor cores
 REPO = Path(__file__).resolve().parent
@@ -863,15 +905,14 @@ def phase_kernels(torch, dev) -> dict:
     return table, extra
 
 
-def phase_fleet(torch, dev) -> tuple[dict, dict]:
-    import repro_torch
+def _bare_inputs(torch, dev):
+    """Phase 4's bare fleet from seed 0: (N, S, T, C) per-node HAR
+    streams, the (N, S) harvest, (S, N) labels and the model inputs."""
     from repro_torch.configs.seeker_har import HAR
     from repro_torch.core.energy import fleet_harvest_traces
     from repro_torch.core.recovery import init_generator
     from repro_torch.data.sensors import class_signatures, har_stream
-    from repro_torch.kernels import ops
     from repro_torch.models.har import har_init
-    from repro_torch.serving.fleet import draw_fleet_noise, to_device
 
     g = torch.Generator(device=dev).manual_seed(0)
     params = har_init(g, HAR)
@@ -881,7 +922,16 @@ def phase_fleet(torch, dev) -> tuple[dict, dict]:
         gen_params=init_generator(g, HAR.window, HAR.channels), har_cfg=HAR)
     windows, labels = har_stream(g, N_SLOTS, streams=N_NODES)  # (N, S, T, C)
     harvest = fleet_harvest_traces(g, N_NODES, N_SLOTS)
-    labels = labels.T.contiguous()                             # (S, N)
+    return windows, harvest, labels.T.contiguous(), inputs
+
+
+def phase_fleet(torch, dev) -> tuple[dict, dict]:
+    import repro_torch
+    from repro_torch.configs.seeker_har import HAR
+    from repro_torch.kernels import ops
+    from repro_torch.serving.fleet import draw_fleet_noise, to_device
+
+    windows, harvest, labels, inputs = _bare_inputs(torch, dev)
 
     ops.reset_launch_counts()
     res = repro_torch.seeker_fleet_simulate(
@@ -1701,7 +1751,8 @@ def _sharded_rank(argv) -> int:
     """One of phase 9's gloo ranks sharing the card (started by
     :func:`phase_sharded` as ``chip_smoke.py --sharded-rank R WORLD STORE
     OUT DEVICE``): the N=3001 fleet on a (2, WORLD/2) ("pod", "data") mesh
-    on DEVICE, twice (the second timed and profiled), written to OUT."""
+    on DEVICE, twice (the second timed and profiled), and once more with
+    per-node keyed noise, written to OUT."""
     import torch
     import torch.distributed as dist
     rank, world, store, out, dev = argv[:5]
@@ -1734,13 +1785,117 @@ def _sharded_rank(argv) -> int:
         syncs, secs = _count_syncs(torch, run)
         dist.barrier()
         coll = _collectives(torch, run, secs)
+        # (c) the same fleet drawing from per-node keys: each rank hashes
+        # only its tile's keys
+        keyed = repro_torch.seeker_fleet_simulate_sharded(
+            windows, harvest, mesh=mesh, node_block=None,
+            node_keys=repro_torch.fleet_node_keys(KEY_SEED, SHARD_GLOO_N,
+                                                  dev), **kw)
         torch.save(dict(ints=_sharded_ints(res), launches=launches,
                         seconds=secs, syncs=syncs, collectives=coll,
                         padded_nodes=res["padded_nodes"],
-                        node_axes=res["node_axes"]), out)
+                        node_axes=res["node_axes"],
+                        keyed=dict(_sharded_ints(keyed),
+                                   final_keys=keyed["final_keys"].cpu())),
+                   out)
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def _noise_bytes_per_node() -> int:
+    """The float32 noise one node draws a slot: D4's uniforms, the
+    recovery's directions and radii, the generator's latent."""
+    from repro_torch.configs.seeker_har import HAR
+    from repro_torch.serving.fleet import LATENT
+    t, c = HAR.window, HAR.channels
+    return 4 * (t + c * t * 2 + c * t + LATENT)
+
+
+def _sharded_keyed(torch, dev, mesh, windows, harvest, kw, world1) -> dict:
+    """Phase 9 (c): per-node keyed noise on the card.  The keys and one
+    slot's hash words and uniforms bitwise a CPU run's; phase 4's bare
+    fleet keyed against a CPU plain run; at world size 1 the sharded keyed
+    run with every lane bitwise the single-device keyed run; the streamed
+    driver chained through ``final_keys`` bitwise one run."""
+    import repro_torch
+    from repro_torch.configs.seeker_har import HAR
+    from repro_torch.kernels import ops
+    from repro_torch.serving.fleet import draw_slot_noise_keyed, to_device
+
+    n, s = harvest.shape
+    t, c = HAR.window, HAR.channels
+    keys = repro_torch.fleet_node_keys(KEY_SEED, n, dev)
+    cpu_keys = repro_torch.fleet_node_keys(KEY_SEED, n, "cpu")
+    assert torch.equal(keys.cpu(), cpu_keys)
+    nz, nxt = draw_slot_noise_keyed(keys, t, c)
+    cnz, cnxt = draw_slot_noise_keyed(cpu_keys, t, c)
+    assert torch.equal(nxt.cpu(), cnxt)
+    for k in ("u", "radii_u"):             # integers times 2**-24: exact
+        assert torch.equal(nz[k].cpu(), cnz[k]), k
+    normal_err = max(float((nz[k].cpu() - cnz[k]).abs().max())
+                     for k in ("dirs", "latent"))
+
+    # phase 4's bare fleet, keyed, against the CPU plain run
+    bw, bh, blabels, binputs = _bare_inputs(torch, dev)
+    bare = repro_torch.seeker_fleet_simulate(
+        bw, bh, labels=blabels, node_keys=keys, device=dev, **binputs)
+    cpu_inputs = {k: v if k == "har_cfg" else to_device(v, "cpu")
+                  for k, v in binputs.items()}
+    cpu = repro_torch.seeker_fleet_simulate(
+        bw.cpu(), bh.cpu(), labels=blabels.cpu(), node_keys=cpu_keys,
+        device="cpu", **cpu_inputs)
+    agree = float((cpu["decisions"] == bare["decisions"].cpu())
+                  .float().mean())
+    assert agree >= 0.99, agree
+    assert torch.equal(bare["final_keys"].cpu(), cpu["final_keys"])
+    del bw, bh, blabels, binputs, bare, cpu
+
+    def single():
+        return repro_torch.seeker_fleet_simulate(
+            windows, harvest, node_keys=keys, **kw)
+
+    def sharded():
+        return repro_torch.seeker_fleet_simulate_sharded(
+            windows, harvest, mesh=mesh, node_keys=keys, **kw)
+
+    ops.reset_launch_counts()
+    got = sharded()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = single()
+    a, b = _sharded_ints(got), _sharded_ints(want)
+    for k in b:
+        assert torch.equal(a[k], b[k]), k
+    assert torch.equal(got["logits"], want["logits"])
+    assert torch.equal(got["final_keys"], want["final_keys"])
+    streamed = repro_torch.seeker_fleet_simulate_streamed(
+        windows, harvest, chunk=KEY_CHUNK, node_keys=keys, **kw)
+    c_ = _sharded_ints(streamed)
+    for k in b:
+        assert torch.equal(c_[k], b[k]), ("streamed", k)
+    assert torch.equal(streamed["logits"], want["logits"])
+    assert torch.equal(streamed["final_keys"], want["final_keys"])
+    assert streamed["n_chunks"] == -(-s // KEY_CHUNK)
+    syncs, secs = _count_syncs(torch, single)
+    print(f"sharded (c) keyed noise: keys and one slot's hash words and "
+          f"uniforms bitwise the CPU's at N={n} (normals within "
+          f"{normal_err:.3g}); bare fleet S={s} keyed: decisions agree with "
+          f"the CPU plain run on {agree:.6f} of node-slots, final keys "
+          f"bitwise; world size 1 sharded keyed run with every lane: "
+          f"{len(b)} integer traces, aggregates and telemetry lanes, logits "
+          f"and final keys bitwise the single-device keyed run; "
+          f"{s // KEY_CHUNK} streamed segments chained through final_keys "
+          f"bitwise the {s}-slot run; {secs / s * 1e3:.3f} ms/slot keyed "
+          f"against {world1['single_device_ms_per_slot']:.3f} from a "
+          f"generator, {syncs / s:g} synchronisations/slot; launches "
+          f"{launches}")
+    return dict(nodes=n, slots=s, launches=launches, equal_keys=sorted(b),
+                decision_agreement=agree, normal_max_err=normal_err,
+                ms_per_slot=secs / s * 1e3,
+                generator_ms_per_slot=world1["single_device_ms_per_slot"],
+                syncs_per_slot=syncs / s, chunk=KEY_CHUNK,
+                noise_bytes_per_node=_noise_bytes_per_node())
 
 
 def phase_sharded(torch, dev) -> dict:
@@ -1749,7 +1904,9 @@ def phase_sharded(torch, dev) -> dict:
     engine with the same generator seed (every output bitwise, the same
     kernel launches), and the per-shard host serve step against the
     single-device queue mode; (b) 4 gloo ranks sharing the card on a
-    (2, 2) mesh at N=3001 (3 padding nodes), S=4, against a one-rank run."""
+    (2, 2) mesh at N=3001 (3 padding nodes), S=4, against a one-rank run;
+    (c) per-node keyed noise (:func:`_sharded_keyed`, and (b)'s ranks
+    once more with keys)."""
     import shutil
     import torch.distributed as dist
     import repro_torch
@@ -1893,13 +2050,20 @@ def phase_sharded(torch, dev) -> dict:
               f"{n} windows: logits bitwise the direct serve step's; "
               f"launches {paired_launches}")
         out["edge_host"] = dict(windows=n, launches=paired_launches)
+        out["keyed"] = _sharded_keyed(torch, dev, mesh, windows, harvest, kw,
+                                      out["world1"])
 
-        # (b) the one-rank run the gloo ranks are held to
+        # (b) the one-rank runs the gloo ranks are held to
         gn, gs = SHARD_GLOO_N, SHARD_GLOO_SLOTS
         g_windows, g_harvest, g_kw = _sharded_inputs(torch, dev, gn, gs)
         one = _sharded_ints(repro_torch.seeker_fleet_simulate_sharded(
             g_windows, g_harvest, mesh=mesh,
             generator=torch.Generator(device=dev).manual_seed(10), **g_kw))
+        one_keyed = repro_torch.seeker_fleet_simulate_sharded(
+            g_windows, g_harvest, mesh=mesh,
+            node_keys=repro_torch.fleet_node_keys(KEY_SEED, gn, dev), **g_kw)
+        one_keyed = dict(_sharded_ints(one_keyed),
+                         final_keys=one_keyed["final_keys"].cpu())
         del g_windows, g_harvest, g_kw
     finally:
         dist.destroy_process_group()
@@ -1931,6 +2095,20 @@ def phase_sharded(torch, dev) -> dict:
         assert res["padded_nodes"] == (-gn) % world, res["padded_nodes"]
         for k in one:
             assert torch.equal(res["ints"][k], one[k]), (r, k)
+        for k in one_keyed:
+            assert torch.equal(res["keyed"][k], one_keyed[k]), (r, "keyed", k)
+    tile = (gn + (-gn) % world) // world
+    per_node = _noise_bytes_per_node()
+    print(f"sharded (c) {world} gloo ranks keyed, N={gn}: every rank's "
+          f"{len(one_keyed)} traces, aggregates, telemetry lanes and final "
+          f"keys equal to the one-rank keyed run; noise drawn a rank and "
+          f"slot {tile * per_node / 1e6:.3f} MB keyed (its {tile}-node "
+          f"tile) against {gn * per_node / 1e6:.3f} MB from a generator "
+          f"(the whole fleet)")
+    out["keyed"]["gloo_ranks"] = dict(
+        ranks=world, nodes=gn, equal_keys=sorted(one_keyed),
+        tile_nodes=tile, noise_bytes_per_slot_keyed=tile * per_node,
+        noise_bytes_per_slot_generator=gn * per_node)
     launches_b = [res["launches"] for res in ranks]
     colls = [res["collectives"] for res in ranks]
     print(f"sharded (b) {world} gloo ranks on one card, N={gn} S={gs}, "
@@ -4233,6 +4411,169 @@ def phase_lm_sharded(torch, dev, train: dict) -> dict:
     return out
 
 
+def _dryrun_compress(argv) -> int:
+    """The reference's own compression check (``chip_smoke.py
+    --dryrun-compress OUT``; ``tests/test_sharding_and_dryrun.py``'s
+    model, mesh, codec and batch): the dense and the coreset-compressed
+    DP step of a tiny model on an (8,) ("data",) mesh of fake ranks,
+    their collective bytes written to OUT as JSON."""
+    import torch
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch import sharding as shd
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.op_analysis import analyze_step
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.train import TrainHyper
+
+    cfg = ModelConfig(name="t", vocab=256, d_model=64, n_layers=2,
+                      n_heads=4, n_kv=2, d_ff=256, dtype=torch.float32)
+    res = {}
+    with dryrun.fake_group(8):
+        mesh = make_mesh_for((8,), ("data",), "cpu")
+        for compress in (False, True):
+            step, args = dryrun.build_step(
+                "t", ShapeCell("t", "train", 64, 16), mesh,
+                rules=shd.DP_TP_RULES, cfg=cfg, hyper=TrainHyper(),
+                compress=compress,
+                compression=CompressionConfig(topk_ratio=1 / 64,
+                                              min_size=1024))
+            res["compressed" if compress else "dense"] = analyze_step(
+                step, *args).to_json()
+    Path(argv[0]).write_text(json.dumps(res))
+    return 0
+
+
+def phase_dryrun(torch, dev, train: dict) -> dict:
+    """Phase 16: the dry run (module docstring)."""
+    import os
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.op_analysis import analyze_step
+    from repro_torch.launch.shapes import SHAPES, ShapeCell
+    from repro_torch.train import TrainHyper
+
+    t0 = time.perf_counter()
+    work = REPO / "build" / "dryrun"
+    work.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+             "--shape", sh, "--mesh", m, "--tag", tag, "--force", *flags]
+            for a, sh, m, flags, tag in DRYRUN_CELLS]
+    cmds.append([sys.executable, str(Path(__file__).resolve()),
+                 "--dryrun-compress", str(work / "compress.json")])
+    logs = [open(work / f"cell{i}.log", "w") for i in range(len(cmds))]
+    procs = [subprocess.Popen(cmd, cwd=str(REPO), env=env, stdout=log,
+                              stderr=subprocess.STDOUT)
+             for cmd, log in zip(cmds, logs)]
+    try:
+        # (b) meanwhile: phase 14's own cell, a world of one, in this process
+        cfg = get_config("tinyllama-1.1b")
+        cell = ShapeCell("train_4k", "train", SHAPES["train_4k"].seq_len,
+                         TRAIN_BATCH)
+        ops.reset_launch_counts()
+        tb = time.perf_counter()
+        step, args = dryrun.build_step(
+            "tinyllama-1.1b", cell, None, cfg=cfg,
+            hyper=TrainHyper(peak_lr=3e-4, warmup=2, total_steps=TRAIN_STEPS))
+        st = analyze_step(step, *args)
+        del step, args
+        b_secs = time.perf_counter() - tb
+        launches = _launches_zero(ops.launch_counts(), "dryrun")
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p, log in zip(procs, logs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    failed = [i for i, p in enumerate(procs) if p.returncode]
+    for i in failed:
+        print((work / f"cell{i}.log").read_text()[-3000:])
+    assert not failed, f"dry-run processes {failed} failed"
+
+    # (a) the four cells
+    cells = []
+    for arch, shape, mesh, flags, tag in DRYRUN_CELLS:
+        res = json.loads(Path(dryrun.cell_path(arch, shape, mesh, tag))
+                         .read_text())
+        assert res["status"] == "ok", (arch, shape, res.get("error"))
+        row = roofline.roofline_row(res)
+        ma, coll = res["memory_analysis"], res["collectives"]
+        if res["cell"]["kind"] == "decode":
+            assert roofline.fits(row), (arch, shape, row["fit_gib"])
+        name = f"{arch} {shape} {mesh}" + (" " + " ".join(flags)
+                                           if flags else "")
+        print(f"dry run (a) {name}, {res['n_devices']} ranks: "
+              f"{res['op_analysis']['flops']:.4g} FLOPs a device, arguments "
+              f"{ma['argument_bytes'] / 1e9:.3f} GB, temporaries "
+              f"{ma['temp_bytes'] / 1e9:.3f} GB (fit {row['fit_gib']:.2f} "
+              f"GiB), collectives "
+              f"{ {k: coll[k]['bytes'] for k in coll if k != 'total_bytes'} }"
+              f" bytes; roofline compute {row['t_compute'] * 1e3:.3f} ms, "
+              f"memory {row['t_memory'] * 1e3:.3f} ms, collective "
+              f"{row['t_collective'] * 1e3:.3f} ms ({row['dominant']}), "
+              f"MODEL/HLO {row['useful_ratio']:.3f}, roofline fraction "
+              f"{row['roofline_frac']:.4f}; traced in "
+              f"{res['timings']['trace_s']} s")
+        cells.append(dict(name=name, n_devices=res["n_devices"],
+                          flops=res["op_analysis"]["flops"],
+                          memory=ma, collectives=coll, roofline=row,
+                          timings=res["timings"],
+                          warnings=res["op_analysis"]["warnings"]))
+    dense, comp = cells[2]["collectives"], cells[3]["collectives"]
+    ref = json.loads((work / "compress.json").read_text())
+    ref_dense = ref["dense"]["collective_bytes"]["all-reduce"]
+    ref_comp = ref["compressed"]["total_collective_bytes"]
+    assert ref_comp < ref_dense, (ref_comp, ref_dense)
+    print(f"dry run (a) the reference's compression check, (8,) mesh: "
+          f"compressed step {ref_comp:.0f} collective bytes against the "
+          f"dense step's {ref_dense:.0f} all-reduce bytes; at train_4k on "
+          f"the (16, 16) mesh: compressed (dp_tp) {comp['total_bytes']:.4g}"
+          f" bytes in all against the FSDP cell's {dense['all-reduce']['bytes']:.4g}"
+          f" all-reduce bytes (the tensor-parallel activation all-reduces, "
+          f"{comp['all-reduce']['bytes']:.4g} bytes in the compressed cell, "
+          f"are in both)")
+
+    # (b) against phase 14's measurement
+    main = train["main"]
+    one_step = st.memory["argument_bytes"] + st.memory["temp_bytes"]
+    peak = main["peak_memory_gb"] * 1e9
+    resident = main["resident_before_gb"] * 1e9
+    mem_rel = one_step / (peak - resident) - 1
+    flops_rel = st.flops / main["operations"] - 1
+    print(f"dry run (b) phase 14's cell, batch {TRAIN_BATCH} x "
+          f"{cell.seq_len}, world of one ({b_secs:.1f} s): arguments "
+          f"{st.memory['argument_bytes'] / 1e9:.3f} GB + temporaries "
+          f"{st.memory['temp_bytes'] / 1e9:.3f} GB = {one_step / 1e9:.3f} GB "
+          f"against phase 14's peak {peak / 1e9:.3f} GB less "
+          f"{resident / 1e9:.3f} GB resident before the loop "
+          f"({mem_rel:+.4f}; {one_step / peak:.4f} of the whole peak); "
+          f"{st.flops:.5g} FLOPs against _train_bounds' "
+          f"{main['operations']:.5g} ({flops_rel:+.4f}); launches "
+          f"{launches}")
+    assert abs(mem_rel) <= DRYRUN_MEM_REL, mem_rel
+    assert abs(flops_rel) <= DRYRUN_FLOPS_REL, flops_rel
+    secs = time.perf_counter() - t0
+    print(f"phase 16: {secs:.1f} s")
+    return dict(cells=cells, reference_compression=dict(
+                    dense_allreduce_bytes=ref_dense,
+                    compressed_total_bytes=ref_comp),
+                phase14_cell=dict(memory=st.memory, flops=st.flops,
+                                  one_step_bytes=one_step,
+                                  phase14_peak_bytes=peak,
+                                  phase14_resident_bytes=resident,
+                                  mem_rel=mem_rel,
+                                  ratio_to_whole_peak=one_step / peak,
+                                  operations=main["operations"],
+                                  flops_rel=flops_rel, seconds=b_secs),
+                launches=launches, seconds=secs)
+
+
 def train_drift(argv) -> int:
     """``chip_smoke.py --train-drift [LAYERS ...]``: the CPU estimate phase
     14's bounds were set from.  tinyllama-1.1b at full width cut to each
@@ -4398,6 +4739,7 @@ def main() -> int:
     multimodal = phase_lm_multimodal(torch, dev)
     train = phase_lm_train(torch, dev)
     lm_sharded = phase_lm_sharded(torch, dev, train)
+    dry = phase_dryrun(torch, dev, train)
     # each kernel's launches on every path, each counted from zero;
     # ``launches`` is its main path's: the fleet's three, and the sampler's
     # entry point
@@ -4413,6 +4755,7 @@ def main() -> int:
                "sharded_edge_host": sharded["edge_host"]["launches"],
                "sharded_gloo_rank0":
                    sharded["gloo_ranks"]["launches_per_rank"][0],
+               "sharded_keyed": sharded["keyed"]["launches"],
                "per_sensor_oracle": paper["oracle"][0]["launches"]["oracle"],
                "bearing_step": paper["bearing_step"]["launches"],
                "codecs": paper["codecs"]["launches"],
@@ -4429,7 +4772,8 @@ def main() -> int:
                "lm_train_gloo_rank0": train["gloo_ranks"]["launches"],
                "lm_sharded_fsdp": lm_sharded["fsdp"]["launches"],
                "lm_sharded_dptp": lm_sharded["dptp"]["launches"],
-               "lm_sharded_fault_tolerance": lm_sharded["cut"]["launches"]}
+               "lm_sharded_fault_tolerance": lm_sharded["cut"]["launches"],
+               "dryrun": dry["launches"]}
     if lm_sharded["gloo_ranks"]["ran"]:
         by_path["lm_sharded_gloo_rank0"] = lm_sharded["gloo_ranks"][
             "launches"]
@@ -4448,7 +4792,7 @@ def main() -> int:
              streamed=streamed, host_serve=host_serve, sharded=sharded,
              paper_path=paper, lm_serve=lm, lm_mixers=mixers,
              lm_multimodal=multimodal, lm_train=train,
-             lm_sharded=lm_sharded),
+             lm_sharded=lm_sharded, dryrun=dry),
         indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -4469,6 +4813,8 @@ if __name__ == "__main__":
         sys.exit(_lm_shard_rank(sys.argv[2:]))
     if sys.argv[1:2] == ["--lm-shard-probe"]:
         sys.exit(_lm_shard_rank(sys.argv[2:], probe=True))
+    if sys.argv[1:2] == ["--dryrun-compress"]:
+        sys.exit(_dryrun_compress(sys.argv[2:]))
     if sys.argv[1:2] == ["--train-drift"]:
         sys.exit(train_drift(sys.argv[2:]))
     sys.exit(main())

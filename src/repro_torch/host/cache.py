@@ -25,6 +25,8 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..core.counter_hash import mul32 as _mul32
+
 __all__ = ["RecoveryCache", "cache_init", "cache_stats",
            "payload_signature", "batch_signatures", "cache_lookup_batch",
            "cache_insert_batch"]
@@ -52,11 +54,6 @@ def cache_init(capacity: int, n_classes: int, device=None) -> RecoveryCache:
         logits=z((capacity, n_classes), torch.float32),
         valid=z((capacity,), torch.bool), cursor=z((), torch.int32),
         hits=z((), torch.int32), misses=z((), torch.int32))
-
-
-def _mul32(a: torch.Tensor, b) -> torch.Tensor:
-    """``a * b mod 2**32`` for values in ``[0, 2**32)``."""
-    return (a * b) & _MASK
 
 
 def _leaf_words(x: torch.Tensor, batch: int) -> torch.Tensor:

@@ -44,12 +44,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 from typing import Any, Callable, NamedTuple
 
 import torch
 
 from ..core.coreset import ClusterCoreset, SamplingCoreset
+from ..core.counter_hash import (box_muller, counter_words, fmix32,
+                                 word_uniforms)
 from ..core.recovery import (GeneratorParams, recover_cluster_window,
                              recover_sampling_window)
 from ..models.har import har_apply
@@ -61,7 +62,7 @@ from ..serving.edge_host import (WirePayload, WireSamplePayload,
                                  _dequantize_coresets, _dequantize_samples,
                                  decode_wire_coresets)
 from ..serving.fleet import resolve_device
-from .cache import (RecoveryCache, _mul32, batch_signatures, cache_init,
+from .cache import (RecoveryCache, batch_signatures, cache_init,
                     cache_insert_batch, cache_lookup_batch, cache_stats)
 from .queue import (PayloadQueue, push_lane, queue_init, queue_occupancy,
                     queue_wait_slots, tree_map)
@@ -311,22 +312,6 @@ def host_server_init_stacked(cfg: HostServeConfig, n_hosts: int,
 # Recovery noise keyed by the payload
 # ---------------------------------------------------------------------------
 
-def _fmix32(h: torch.Tensor) -> torch.Tensor:
-    """MurmurHash3's 32-bit finalizer on int64 words in ``[0, 2**32)``."""
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
-
-
-@functools.lru_cache(maxsize=64)
-def _counters(n: int, device: torch.device) -> torch.Tensor:
-    """(n,) the element counters' golden-ratio spread, made once per size."""
-    e = torch.arange(1, n + 1, dtype=torch.int64, device=device)
-    return _mul32(e, 0x9E3779B1)
-
-
 def counter_noise(sigs: torch.Tensor, *, seed: int, channels: int,
                   t: int) -> dict:
     """The default recovery noise of (B, 2) payload signatures: a
@@ -340,12 +325,11 @@ def counter_noise(sigs: torch.Tensor, *, seed: int, channels: int,
     b = sigs.shape[0]
     n_dir, n_rad = channels * t * 2, channels * t
     n_norm = n_dir + LATENT
-    key = _fmix32(_fmix32(sigs[:, 0] ^ ((seed & 0xFFFFFFFF) ^ 0x3C6EF372))
-                  ^ sigs[:, 1])
-    h = _fmix32(key[:, None] ^ _counters(2 * n_norm + n_rad, sigs.device))
-    u = ((h >> 8) + 1).to(torch.float32) * (2.0 ** -24)    # (0, 1]
+    key = fmix32(fmix32(sigs[:, 0] ^ ((seed & 0xFFFFFFFF) ^ 0x3C6EF372))
+                 ^ sigs[:, 1])
+    u = word_uniforms(counter_words(key, 2 * n_norm + n_rad))  # (0, 1]
     u1, u2, ur = u[:, :n_norm], u[:, n_norm:2 * n_norm], u[:, 2 * n_norm:]
-    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+    z = box_muller(u1, u2)
     return {"dirs": z[:, :n_dir].reshape(b, channels, t, 2),
             "radii_u": (1.0 - ur).reshape(b, channels, t, 1),
             "latent": z[:, n_dir:]}

@@ -35,6 +35,7 @@ encoder_frames, D) and ``patch_embeds`` (B, P, D).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, NamedTuple
 
@@ -43,15 +44,15 @@ import torch.nn.functional as F
 
 from .config import ModelConfig, pattern_runs
 from .flash import flash_banded_attention, flash_causal_attention
-from .layers import (apply_rope, banded_attention, decode_attention,
-                     dense_attention, geglu, mrope_sincos,
+from .layers import (NEG_INF, _pv, _scores, apply_rope, banded_attention,
+                     decode_attention, dense_attention, geglu, mrope_sincos,
                      pair_chunked_attention, rms_norm, rope_sincos,
                      sinusoidal_at, sinusoidal_positions, swiglu)
 from .moe import moe_apply, moe_param_shapes
 from .rglru import (rglru_apply, rglru_decode_step, rglru_param_shapes,
                     rglru_state_shapes)
 from .ssd import ssd_apply, ssd_decode_step, ssd_param_shapes, ssd_state_shapes
-from ..sharding import constrain, is_dtensor, place
+from ..sharding import constrain, is_dtensor, named_sharding, place
 
 __all__ = ["PSpec", "model_param_shapes", "init_params", "abstract_params",
            "param_specs", "compute_params", "forward", "decode_step",
@@ -270,8 +271,145 @@ def _pick_chunk(s: int, chunk: int) -> int:
     return chunk if (s % chunk == 0 and s >= chunk) else s
 
 
+def _on_mesh(x) -> bool:
+    """Is ``x`` a DTensor on a mesh of more than one rank?"""
+    return is_dtensor(x) and x.device_mesh.size() > 1
+
+
+class _SumGradOver(torch.autograd.Function):
+    """The identity, whose gradient is summed over the mesh dims
+    ``groups`` ((mesh, dim) pairs): Megatron's ``f`` on an input every
+    rank reads for its own slice of the columns."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed import _functional_collectives as funcol
+        for g in ctx.groups:
+            grad = funcol.wait_tensor(funcol.all_reduce(grad, "sum", g))
+        return grad, None
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum of each rank's part over the mesh dims ``groups``, whose
+    gradient every part takes whole: Megatron's ``g`` after a row split."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        from torch.distributed import _functional_collectives as funcol
+        for g in groups:
+            x = funcol.wait_tensor(funcol.all_reduce(x, "sum", g))
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _col_proj(h: torch.Tensor, w: torch.Tensor, axis: str):
+    """``h @ w`` over ``h``'s last dim, on a mesh, as each rank's local
+    product (Megatron's column split): ``w`` (D, *C) gathered over its FSDP
+    split, its first output dim split where the logical ``axis`` divides
+    the mesh, the batch rows where ``"batch"`` does.  (Left to itself,
+    DTensor may run the whole product on every rank of a free axis, or
+    split flattened columns where the unflatten cannot follow, as 4 KV
+    heads on a 16-way axis.)  The weight's gradient is each rank's part
+    of the sum over the batch; the input's is summed over the split
+    columns in the backward, once a product."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    b, s, _ = h.shape
+    tail = tuple(w.shape[1:])
+    want = named_sharding(("batch", "seq", axis) + (None,) * (len(tail) - 1),
+                          (b, s) + tail).placements
+    op = [p if p in (Shard(0), Shard(2)) else Replicate() for p in want]
+    hp = [Shard(0) if p == Shard(0) else Replicate() for p in op]
+    wp = [Shard(1) if p == Shard(2) else Replicate() for p in op]
+    wg = [Partial() if p == Shard(0) else q for p, q in zip(op, wp)]
+    mesh = h.device_mesh
+    split = [(mesh, j) for j, p in enumerate(op) if p == Shard(2)]
+
+    def local(hl, wl):
+        return torch.tensordot(_SumGradOver.apply(hl, split), wl, dims=1)
+
+    return local_map(local, out_placements=op, in_placements=(hp, wp),
+                     in_grad_placements=(hp, wg), redistribute_inputs=True,
+                     device_mesh=mesh)(h, w)
+
+
+def _embed_local(table: torch.Tensor, tokens: torch.Tensor,
+                 dtype: torch.dtype):
+    """``table[tokens]`` in ``dtype`` on a mesh, Megatron's vocab-parallel
+    lookup: the table gathered over its FSDP split only; each rank looks
+    up its rows of ``tokens`` in its own vocab slice (zeros for the tokens
+    outside it), and the slices' rows are summed over the vocab split.
+    The table's gradient is each rank's part of the sum over the batch.
+    (Left to itself, DTensor gathers the activations instead.)"""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = tokens.device_mesh
+    tp = [Shard(0) if p == Shard(0) else Replicate()
+          for p in tokens.placements]
+    wp = [Shard(0) if p == Shard(0) else Replicate()
+          for p in table.placements]
+    wg = [Partial() if t == Shard(0) else w for t, w in zip(tp, wp)]
+    vocab = [j for j, p in enumerate(wp) if p == Shard(0)]
+
+    def local(wl, tl):
+        index = 0                  # this rank's vocab slice, major first
+        for j in vocab:
+            index = index * mesh.size(j) + mesh.get_local_rank(j)
+        v = wl.shape[0]
+        rel = tl - index * v
+        inside = (rel >= 0) & (rel < v)
+        rows = wl[rel.clamp(0, v - 1)].to(dtype)
+        rows = torch.where(inside[..., None], rows, rows.new_zeros(()))
+        return _SumOver.apply(rows, [(mesh, j) for j in vocab])
+
+    return local_map(local, out_placements=tp, in_placements=(wp, tp),
+                     in_grad_placements=(wg, tp), redistribute_inputs=True,
+                     device_mesh=mesh)(table, tokens)
+
+
+def _row_proj(x: torch.Tensor, w: torch.Tensor, axis: str):
+    """``x`` (B, S, *C) contracted with ``w`` (*C, D) on a mesh, as each
+    rank's local product (Megatron's row split): ``C``'s first dim split
+    where the logical ``axis`` divides the mesh, ``w`` gathered over its
+    FSDP split; each rank's part of the (B, S, D) result is summed over the
+    split, once a product, in the compute dtype."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    lead = tuple(w.shape[:-1])
+    want = named_sharding(("batch", "seq", axis) + (None,) * (len(lead) - 1),
+                          tuple(x.shape)).placements
+    xp = [p if p in (Shard(0), Shard(2)) else Replicate() for p in want]
+    wp = [Shard(0) if p == Shard(2) else Replicate() for p in xp]
+    op = [Replicate() if p == Shard(2) else p for p in xp]
+    wg = [Partial() if p == Shard(0) else q for p, q in zip(xp, wp)]
+    mesh = x.device_mesh
+    split = [(mesh, j) for j, p in enumerate(xp) if p == Shard(2)]
+
+    def local(xl, wl):
+        return _SumOver.apply(torch.tensordot(xl, wl, dims=len(lead)), split)
+
+    return local_map(local, out_placements=op, in_placements=(xp, wp),
+                     in_grad_placements=(xp, wg), redistribute_inputs=True,
+                     device_mesh=mesh)(x, w)
+
+
 def _project_qkv(p: dict, h: torch.Tensor, wq: torch.Tensor):
     dt = h.dtype
+    if _on_mesh(h):
+        return (_col_proj(h, wq.to(dt), "heads"),
+                _col_proj(h, p["wk"].to(dt), "kv_heads"),
+                _col_proj(h, p["wv"].to(dt), "kv_heads"))
     q = torch.einsum("bsd,dhk->bshk", h, wq.to(dt))
     k = torch.einsum("bsd,dgk->bsgk", h, p["wk"].to(dt))
     v = torch.einsum("bsd,dgk->bsgk", h, p["wv"].to(dt))
@@ -310,7 +448,8 @@ def _attn_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
         q5 = q.reshape(b, s, hp, 1, cfg.head_dim)
     else:
         k_att, v_att = k, v
-        q5 = q.reshape(b, s, cfg.n_kv, cfg.n_heads // cfg.n_kv, cfg.head_dim)
+        q5 = (None if _heads_unaligned(q, cfg.n_kv) else q.reshape(
+            b, s, cfg.n_kv, cfg.n_heads // cfg.n_kv, cfg.head_dim))
     window = cfg.window if kind == "local" else None
 
     def attend(q5, k_att, v_att):
@@ -337,10 +476,15 @@ def _attn_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
                                       chunk=cfg.attn_chunk,
                                       softcap=cfg.attn_softcap)
 
-    out = _local_attention(attend, q5, k_att, v_att)
+    if q5 is None:
+        out = _local_gqa(attend, q, k_att, v_att, cfg.n_heads // cfg.n_kv)
+    else:
+        out = _local_attention(attend, q5, k_att, v_att)
     out = out.reshape(b, s, hp, cfg.head_dim)
     wo = (F.pad(p["wo"], (0, 0, 0, 0, 0, hp - cfg.n_heads)) if expand
           else p["wo"])
+    if _on_mesh(out):
+        return _row_proj(out, wo.to(x.dtype), "heads"), (k, v)
     return torch.einsum("bshk,hkd->bsd", out, wo.to(x.dtype)), (k, v)
 
 
@@ -371,6 +515,50 @@ def _local_attention(attend, q5: torch.Tensor, k: torch.Tensor,
                      device_mesh=q5.device_mesh)(q5, k, v)
 
 
+def _heads_unaligned(q: torch.Tensor, groups: int) -> bool:
+    """Is ``q`` (B, S, H, Dh) a DTensor whose heads are split over more
+    ranks than ``groups`` KV groups divide into (tinyllama's 4 groups on a
+    16-way model axis)?  Its (G, R) grouping is then no DTensor layout."""
+    if not is_dtensor(q):
+        return False
+    ranks = math.prod(q.device_mesh.size(j) for j, p in
+                      enumerate(q.placements) if p.is_shard(2))
+    return groups % ranks != 0
+
+
+def _local_gqa(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               rep: int) -> torch.Tensor:
+    """``attend`` on the heads of a DTensor ``q`` (B, S, H, Dh) whose head
+    split does not align with the KV groups of ``k``/``v`` (B, S, G, Dh):
+    each rank holds whole K/V groups, picks the group of each of its own
+    q heads (one KV stream a head, as the padded-heads path expands them)
+    and attends locally; the K/V gradient is its heads' part of the sum.
+    Returns (B, S, H, Dh) on ``q``'s placements."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    qp = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+          for p in q.placements]
+    kp = [p if p == Shard(0) else Replicate() for p in qp]
+    kg = [Partial() if a != b else b for a, b in zip(qp, kp)]
+    head_dims = [j for j, p in enumerate(qp) if p == Shard(2)]
+
+    def local(ql, kl, vl):
+        index = 0                  # this rank's block of heads, major first
+        for j in head_dims:
+            index = index * mesh.size(j) + mesh.get_local_rank(j)
+        hl = ql.shape[2]
+        kv_map = torch.arange(index * hl, (index + 1) * hl,
+                              device=ql.device) // rep
+        return attend(ql.unsqueeze(3), kl[:, :, kv_map],
+                      vl[:, :, kv_map]).squeeze(3)
+
+    return local_map(local, out_placements=qp, in_placements=(qp, kp, kp),
+                     in_grad_placements=(qp, kg, kg),
+                     redistribute_inputs=True, device_mesh=mesh)(q, k, v)
+
+
 def _cross_attn(p: dict, x: torch.Tensor, enc_kv, cfg: ModelConfig):
     """Cross-attention of x (B, S, D) to the encoder's K/V (B, Tf, G, Dh)
     each, in the unpadded (G, rep) grouping."""
@@ -398,10 +586,15 @@ def _mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if is_moe and cfg.moe is not None:
         return moe_apply(p, h, cfg.moe, _act(cfg))
     dt = x.dtype
+    mm = (functools.partial(_col_proj, axis="ff") if _on_mesh(h)
+          else torch.matmul)
     if cfg.mlp in ("swiglu", "geglu"):
-        inner = _act(cfg)(h @ p["mlp_gate"].to(dt), h @ p["mlp_up"].to(dt))
+        inner = _act(cfg)(mm(h, p["mlp_gate"].to(dt)),
+                          mm(h, p["mlp_up"].to(dt)))
     else:
-        inner = F.gelu(h @ p["mlp_up"].to(dt), approximate="tanh")
+        inner = F.gelu(mm(h, p["mlp_up"].to(dt)), approximate="tanh")
+    if _on_mesh(inner):
+        return _row_proj(inner, p["mlp_down"].to(dt), "ff")
     inner = constrain(inner, "batch", "seq", "ff")
     return inner @ p["mlp_down"].to(dt)
 
@@ -474,7 +667,10 @@ def _run_rope(cfg: ModelConfig, kind: str, positions: torch.Tensor,
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Unembed + optional softcap + padded-vocab mask.  x: (B, S, D)."""
     unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    logits = torch.einsum("bsd,dv->bsv", x, unembed.to(cfg.dtype))
+    if _on_mesh(x):
+        logits = _col_proj(x, unembed.to(cfg.dtype), "vocab")
+    else:
+        logits = torch.einsum("bsd,dv->bsv", x, unembed.to(cfg.dtype))
     logits = constrain(logits, "batch", "seq", "vocab")
     if cfg.logit_softcap > 0:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
@@ -504,7 +700,11 @@ def build_mrope_positions(cfg: ModelConfig, batch: int, seq: int,
 
 def _embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   positions: torch.Tensor | None = None) -> torch.Tensor:
-    x = params["embed"][tokens].to(cfg.dtype)
+    table = params["embed"]
+    if _on_mesh(table) and _on_mesh(tokens):
+        x = _embed_local(table, tokens, cfg.dtype)
+    else:
+        x = table[tokens].to(cfg.dtype)
     if cfg.embed_scale:
         # the factor is rounded to the compute dtype first, as in the
         # reference
@@ -716,13 +916,108 @@ def _attn_decode(p: dict, k_cache: torch.Tensor, v_cache: torch.Tensor,
     q, k, v = _project_qkv(p, h, p["wq"])
     if rope is not None:
         q, k = apply_rope(q, *rope), apply_rope(k, *rope)
-    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
-    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
-    q5 = q.reshape(b, 1, g, rep, cfg.head_dim)
-    out = decode_attention(q5, k_cache, v_cache, slot_pos, pos,
-                           softcap=cfg.attn_softcap)
+    if is_dtensor(k_cache):
+        out = _decode_sharded(q, k, v, k_cache, v_cache, pos, cfg)
+    else:
+        k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+        q5 = q.reshape(b, 1, g, rep, cfg.head_dim)
+        out = decode_attention(q5, k_cache, v_cache, slot_pos, pos,
+                               softcap=cfg.attn_softcap)
     out = out.reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    if _on_mesh(out):
+        return _row_proj(out, p["wo"].to(x.dtype), "heads")
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+def _decode_sharded(q, k, v, k_cache, v_cache, pos, cfg: ModelConfig):
+    """One token's cache write and attention on a cache placed on a mesh
+    (B, W, G, Dh): each rank writes the token into its own slice of the
+    cache (when the slot falls in it) and attends on its rows of the
+    batch, its KV groups and its slice of the sequence.  Where the
+    sequence is split (split-KV: the groups do not divide the axis), each
+    rank's softmax is over its slice, and the slices meet in all-reduces
+    of the running max, the sum and the weighted values.  Returns
+    (B, 1, H, Dh)."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = k_cache.device_mesh
+    cp = list(k_cache.placements)
+    seq_dims = [j for j, p in enumerate(cp) if p == Shard(1)]
+    kp = [p if p in (Shard(0), Shard(2)) else Replicate() for p in cp]
+    g, rep = cfg.n_kv, cfg.n_heads // cfg.n_kv
+    pos = pos.full_tensor() if is_dtensor(pos) else pos
+    w_all = k_cache.shape[1]
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+
+    def local(ql, kl, vl, kc, vc):
+        index = 0                   # this rank's sequence slice, major first
+        for j in seq_dims:
+            index = index * mesh.size(j) + mesh.get_local_rank(j)
+        w = kc.shape[1]
+        at = torch.remainder(pos, w_all) - index * w     # the ring's slot
+        inside = (at >= 0) & (at < w)
+        slot = torch.clamp(at, 0, w - 1).reshape(1).long()
+        for c, new in ((kc, kl), (vc, vl)):
+            c.index_copy_(1, slot, torch.where(
+                inside, new.to(c.dtype), c.index_select(1, slot)))
+        i = torch.arange(index * w, (index + 1) * w, device=kc.device)
+        slot_pos = pos - torch.remainder(pos - i, w_all)
+        slot_pos = torch.where(slot_pos >= 0, slot_pos, -1)
+        bl = ql.shape[0]
+        q5 = ql.reshape(bl, 1, kc.shape[2], rep, cfg.head_dim)
+        if not seq_dims:
+            out = decode_attention(q5, kc, vc, slot_pos, pos,
+                                   softcap=cfg.attn_softcap)
+            return out.reshape(bl, 1, -1, cfg.head_dim)
+        scores = _scores(q5, kc, scale, cfg.attn_softcap)
+        valid = (slot_pos >= 0) & (slot_pos <= pos)
+        scores = torch.where(valid, scores, NEG_INF)
+        top = torch.amax(scores, dim=-1, keepdim=True)
+        for j in seq_dims:
+            top = funcol.all_reduce(top, "max", (mesh, j))
+        probs = torch.exp(scores - top)
+        total = torch.sum(probs, dim=-1, keepdim=True)
+        out = _pv(probs.to(ql.dtype), vc).float()
+        for j in seq_dims:
+            total = funcol.all_reduce(total, "sum", (mesh, j))
+            out = funcol.all_reduce(out, "sum", (mesh, j))
+        # total (B, G, R, 1, 1) against out (B, 1, G, R, D)
+        out = out / total[..., 0].permute(0, 3, 1, 2)[..., None]
+        return out.to(ql.dtype).reshape(bl, 1, -1, cfg.head_dim)
+
+    return local_map(local, out_placements=kp,
+                     in_placements=(kp, kp, kp, cp, cp),
+                     redistribute_inputs=True, device_mesh=mesh)(
+        q, k, v, k_cache, v_cache)
+
+
+def _decode_rows(step, p: dict, state: dict, h: torch.Tensor):
+    """``step(p, state, h) -> (mix, new state)``, a recurrent mixer's
+    decode step, on a mesh: each rank runs it on its own rows of the batch
+    with the layer's weights gathered whole (left to itself, DTensor may
+    split the step's small tensors where its reshapes cannot follow)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = h.device_mesh
+    rows = [Shard(0) if q == Shard(0) else Replicate() for q in h.placements]
+    whole = [Replicate()] * mesh.ndim
+    pk, sk = sorted(p), sorted(state)
+
+    def local(hl, *leaves):
+        mix, new = step(dict(zip(pk, leaves[:len(pk)])),
+                        dict(zip(sk, leaves[len(pk):])), hl)
+        return (mix, *[new[k] for k in sk])
+
+    out = local_map(local, out_placements=(rows,) * (1 + len(sk)),
+                    in_placements=(rows,) + (whole,) * len(pk)
+                    + (rows,) * len(sk), redistribute_inputs=True,
+                    device_mesh=mesh)(h, *[p[k] for k in pk],
+                                      *[state[k] for k in sk])
+    return out[0], dict(zip(sk, out[1:]))
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
@@ -758,10 +1053,10 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
             else:
                 state = _layer(c_run, i)
                 h = rms_norm(x, p_l["norm1"], cfg.norm_eps)
-                if kind == "rglru":
-                    mix, new = rglru_decode_step(p_l, state, h)
-                else:
-                    mix, new = ssd_decode_step(p_l, state, h, cfg)
+                step = (rglru_decode_step if kind == "rglru" else
+                        functools.partial(ssd_decode_step, cfg=cfg))
+                mix, new = (_decode_rows(step, p_l, state, h)
+                            if _on_mesh(h) else step(p_l, state, h))
                 for name, t in new.items():
                     state[name].copy_(t)
             x = x + mix

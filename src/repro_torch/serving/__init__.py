@@ -17,7 +17,8 @@ from .edge_host import (  # noqa: F401
     wire_sample_nbytes,
 )
 from .fleet import (  # noqa: F401
-    fleet_node_init, draw_slot_noise, draw_fleet_noise, resolve_device,
+    fleet_node_init, fleet_node_keys, draw_slot_noise,
+    draw_slot_noise_keyed, draw_fleet_noise, resolve_device,
     fleet_telemetry_spec, seeker_fleet_simulate,
     seeker_fleet_simulate_sharded, seeker_fleet_simulate_streamed,
     wire_bytes_exact,

@@ -16,10 +16,19 @@ nothing loops over nodes:
    classifies every offloaded window;
 4. the fleet aggregates are reduced once, after the last slot.
 
-Randomness: every slot draws its (N, ...) batch of D4 and recovery noise
-from one ``torch.Generator`` on the device (:func:`draw_slot_noise`), or
-takes it from ``noise=``, a dict of pre-drawn (S, N, ...) tensors — how the
-parity tests hand the port the numbers JAX drew.
+Randomness comes from one of three sources, and a run takes one:
+
+* ``generator=`` (the default, ``manual_seed(0)``): every slot draws its
+  (N, ...) batch of D4 and recovery noise from one ``torch.Generator`` on
+  the device (:func:`draw_slot_noise`);
+* ``noise=``: a dict of pre-drawn (S, N, ...) tensors — how the parity
+  tests hand the port the numbers JAX drew;
+* ``node_keys=`` ((N, 2) words, :func:`fleet_node_keys`): node ``i`` draws
+  from a counter hash of its own key (:func:`draw_slot_noise_keyed`), and
+  its key advances in each slot it runs, as the reference's per-node
+  ``fold_in(key, i)`` streams do.  A fleet of N nodes then draws what N
+  one-node runs draw, a shard hashes only its own nodes' keys, and
+  ``final_keys`` resumes the streams.
 
 Lanes (:mod:`repro_torch.serving.fleet_lanes`), as in the JAX engine:
 
@@ -66,6 +75,8 @@ import torch
 
 from ..core.aac import AACTable
 from ..core.coreset import raw_payload_bytes
+from ..core.counter_hash import (MASK32, box_muller, counter_words, counters,
+                                 fmix32, word_uniforms)
 from ..core.decision import (D4_SAMPLING, DEFER, N_INTERMITTENT_DECISIONS,
                              IntermittentConfig)
 from ..core.energy import (BrownoutConfig, EnergyCosts, predictor_init,
@@ -86,13 +97,18 @@ from .fleet_lanes import (FLEET_LANES, N_DECISIONS, FleetCarry,
                           fleet_trace_keys)
 
 __all__ = ["N_DECISIONS", "NOISE_KEYS", "resolve_device", "to_device",
-           "fleet_node_init", "draw_slot_noise", "draw_fleet_noise",
+           "fleet_node_init", "fleet_node_keys", "draw_slot_noise",
+           "draw_slot_noise_keyed", "draw_fleet_noise",
            "fleet_telemetry_spec", "seeker_fleet_simulate",
            "seeker_fleet_simulate_sharded", "seeker_fleet_simulate_streamed",
            "wire_bytes_exact"]
 
 NOISE_KEYS = ("u", "dirs", "radii_u", "latent")
 LATENT = 16
+# the node keys' salts (the seed's low and high words) and the row salt of
+# a slot's draw: digits of pi
+_KEY_SALTS = (0x243F6A88, 0x85A308D3)
+_ROW_SALT = 0x13198A2E
 
 
 def resolve_device(device=None) -> torch.device:
@@ -218,6 +234,44 @@ def fleet_node_init(n_nodes: int, predictor_window: int = 8,
         prev_label=torch.zeros((n_nodes,), dtype=torch.int32, device=dev))
 
 
+def fleet_node_keys(seed: int, n: int, device=None) -> torch.Tensor:
+    """(n, 2) per-node noise keys, two 32-bit words a node (int64 tensors
+    in ``[0, 2**32)``), hashed from (``seed``, node index) alone: the keys
+    of a fleet of ``m`` nodes are the first ``m`` keys of any larger one,
+    so node ``i``'s stream is the same in every fleet and shard layout —
+    the counterpart of the reference's ``fold_in(key, i)``, with other
+    numbers."""
+    dev = resolve_device(device)
+    lo = fmix32((seed & MASK32) ^ _KEY_SALTS[0])
+    hi = fmix32(((seed >> 32) & MASK32) ^ _KEY_SALTS[1])
+    k0 = fmix32(counters(n, dev) ^ lo)
+    return torch.stack([k0, fmix32(k0 ^ hi)], dim=1)
+
+
+def draw_slot_noise_keyed(keys: torch.Tensor, t: int, c: int,
+                          latent: int = LATENT
+                          ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+    """One slot's noise for the nodes of ``keys`` (N, 2), each row from a
+    counter hash of its own key (:mod:`repro_torch.core.counter_hash`),
+    with :func:`draw_slot_noise`'s keys, shapes and ranges; and each
+    node's advanced key, the two words after its draws.  A row's numbers
+    depend on its key alone, not on the batch it is drawn in."""
+    n = keys.shape[0]
+    n_dir, n_rad = c * t * 2, c * t
+    n_norm = n_dir + latent
+    row = fmix32(fmix32(keys[:, 0] ^ _ROW_SALT) ^ keys[:, 1])
+    h = counter_words(row, t + 2 * n_norm + n_rad + 2)
+    u = word_uniforms(h[:, :-2])                                # (0, 1]
+    ug, u1 = u[:, :t], u[:, t:t + n_norm]
+    u2, ur = u[:, t + n_norm:t + 2 * n_norm], u[:, t + 2 * n_norm:]
+    z = box_muller(u1, u2)
+    noise = {"u": torch.clamp(1.0 - ug, min=1e-9),
+             "dirs": z[:, :n_dir].reshape(n, c, t, 2),
+             "radii_u": (1.0 - ur).reshape(n, c, t, 1),
+             "latent": z[:, n_dir:]}
+    return noise, h[:, -2:]
+
+
 def draw_slot_noise(generator: torch.Generator, n: int, t: int, c: int,
                     latent: int = LATENT) -> dict[str, torch.Tensor]:
     """One slot's noise for ``n`` nodes, on the generator's device:
@@ -267,6 +321,26 @@ def _check_noise(noise: dict, s: int, n: int, t: int, c: int, take):
                              f"{tuple(v.shape)}")
         out[k] = take(v)
     return out
+
+
+def _check_sources(generator, noise, node_keys) -> None:
+    """A run takes its noise from one source at most."""
+    given = [k for k, v in (("generator", generator), ("noise", noise),
+                            ("node_keys", node_keys)) if v is not None]
+    if len(given) > 1:
+        raise ValueError(f"pass one of generator=, noise= and node_keys=, "
+                         f"got {' and '.join(given)}")
+
+
+def _check_keys(node_keys, n: int, take) -> torch.Tensor:
+    """(N, 2) integer node keys, moved by ``take``."""
+    v = _as_array(node_keys)
+    if tuple(v.shape) != (n, 2):
+        raise ValueError(f"node_keys must be (N, 2)=({n}, 2), got "
+                         f"{tuple(v.shape)}")
+    if torch.as_tensor(v[:0]).is_floating_point():
+        raise ValueError("node_keys are integer words (fleet_node_keys)")
+    return take(v)
 
 
 def _labels_layout(labels, s: int, n: int, shared_stream: bool):
@@ -562,7 +636,8 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
                           aac_table: AACTable | None = None,
                           costs: EnergyCosts | None = None,
                           generator: torch.Generator | None = None,
-                          noise: dict | None = None, quant_bits: int = 16,
+                          noise: dict | None = None,
+                          node_keys=None, quant_bits: int = 16,
                           k_max: int = 12, m_samples: int = 20,
                           corr_threshold: float = 0.95,
                           predictor_window: int = 8, initial_uj: float = 50.0,
@@ -583,9 +658,16 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
             (N, S, T, C) — a stream per node.
         harvest: (N, S) µJ harvested per node per slot.
         generator: ``torch.Generator`` on ``device`` for the per-slot noise;
-            default ``manual_seed(0)``.  Ignored when ``noise`` is given.
+            default ``manual_seed(0)`` when neither ``noise`` nor
+            ``node_keys`` is given.
         noise: optional dict of pre-drawn (S, N, ...) tensors with the keys
             and per-slot shapes of :func:`draw_slot_noise`.
+        node_keys: optional (N, 2) per-node keys (:func:`fleet_node_keys`,
+            or a previous run's ``final_keys`` to resume the streams): each
+            node draws by :func:`draw_slot_noise_keyed`, and its key
+            advances in the slots it runs (frozen through dead and
+            browned-out ones).  ``generator``, ``noise`` and ``node_keys``
+            exclude each other.
         state0: optional stacked :class:`SeekerNodeState` to resume from.
         labels: optional (S,) shared-stream or (S, N) per-node ground truth
             for ``correct``/``fleet_accuracy``.
@@ -625,7 +707,8 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
     ``alive_slots``, ``completed_frac``, ``brownout_slots``,
     ``brownout_events`` and ``raw_bytes_per_window``, with labels
     ``correct`` and ``fleet_accuracy``, and ``final_state`` and
-    ``final_brownout``.  With ``intermittent`` also the traces ``it_emit``
+    ``final_brownout`` (and ``final_keys`` with ``node_keys``).  With
+    ``intermittent`` also the traces ``it_emit``
     (0 none, 1 early exit, 2 full depth), ``it_label``, ``it_conf``,
     ``it_src`` and ``it_stage``, the counters ``it_full`` and ``it_early``
     (with labels ``correct_ladder``, ``it_correct_full`` and
@@ -635,6 +718,7 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
     ``correct_by_task`` and ``accuracy_by_task``).
     """
     dev = resolve_device(device)
+    _check_sources(generator, noise, node_keys)
     costs = costs or EnergyCosts()
     harvest = to_device(harvest, dev, torch.float32)
     windows = to_device(windows, dev, torch.float32)
@@ -664,22 +748,29 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
         it = (intermittent_fleet_init(n, har_cfg, dev)
               if intermittent_state0 is None
               else to_device(intermittent_state0, dev))
-    carry = FleetCarry(
-        node=state, intermittent=it,
-        # the run counts a delta from zero; telemetry_state0 is merged after
-        telemetry=None if tel_spec is None else metrics_init(tel_spec, dev),
-        brownout=_resolve_brownout0(brownout_state0, state, brownout, n))
+    keys0 = None
     if noise is not None:
         noise = _check_noise(noise, s, n, t, c,
                              lambda v: to_device(v, dev, torch.float32))
 
-        def slot_noise(si):
-            return {k: v[si] for k, v in noise.items()}
+        def slot_noise(si, keys):
+            return {k: v[si] for k, v in noise.items()}, None
+    elif node_keys is not None:
+        keys0 = _check_keys(node_keys, n,
+                            lambda v: to_device(v, dev, torch.int64))
+
+        def slot_noise(si, keys):
+            return draw_slot_noise_keyed(keys, t, c)
     else:
         generator = _check_generator(generator, dev)
 
-        def slot_noise(si):
-            return draw_slot_noise(generator, n, t, c)
+        def slot_noise(si, keys):
+            return draw_slot_noise(generator, n, t, c), None
+    carry = FleetCarry(
+        node=state, keys=keys0, intermittent=it,
+        # the run counts a delta from zero; telemetry_state0 is merged after
+        telemetry=None if tel_spec is None else metrics_init(tel_spec, dev),
+        brownout=_resolve_brownout0(brownout_state0, state, brownout, n))
     params = _model_params(
         signatures=signatures, qdnn_params=qdnn_params,
         host_params=host_params, gen_params=gen_params, aac_table=aac_table,
@@ -765,9 +856,9 @@ def _run_slots(xs_w, harvest, exo_alive, carry: FleetCarry, slot_noise, *,
     """The slot loop over the nodes one device holds: ``xs_w`` the (S, T, C)
     shared stream or (S, N, T, C) streams, ``harvest`` and ``exo_alive``
     (N, S), ``carry`` the state entering the first slot and
-    ``slot_noise(si)`` slot ``si``'s (N, ...) noise.  Returns the stacked
-    (S, N) traces, ``preds`` included, and the carry after the last
-    slot."""
+    ``slot_noise(si, keys)`` slot ``si``'s (N, ...) noise and the nodes'
+    advanced keys (None without them).  Returns the stacked (S, N)
+    traces, ``preds`` included, and the carry after the last slot."""
     n, s = harvest.shape
     t, c = xs_w.shape[-2:]
     shared_stream = xs_w.ndim == 3
@@ -787,7 +878,7 @@ def _run_slots(xs_w, harvest, exo_alive, carry: FleetCarry, slot_noise, *,
     for si in range(s):
         win_t = (xs_w[si].expand(n, t, c).contiguous() if shared_stream
                  else xs_w[si])
-        nz = slot_noise(si)
+        nz, next_keys = slot_noise(si, carry.keys)
         harv_t = harvest[:, si]
         alive_t = exo_alive[:, si]
         browned = carry.brownout
@@ -801,6 +892,7 @@ def _run_slots(xs_w, harvest, exo_alive, carry: FleetCarry, slot_noise, *,
             for sl, idx in zip(blocks, host_idx)]
         new = carry._replace(
             node=_tree_map(lambda *xs: torch.cat(xs), *[p[0] for p in parts]),
+            keys=next_keys,
             intermittent=_tree_map(lambda *xs: torch.cat(xs),
                                    *[p[1] for p in parts]))
         trace = {k: torch.cat([p[2][k] for p in parts]) for k in parts[0][2]}
@@ -871,6 +963,8 @@ def _fleet_result(traces: dict, aggs: dict, carry: FleetCarry, *,
         raw_bytes_per_window=torch.tensor(
             float(raw_payload_bytes(t)) * c, dtype=torch.float32, device=dev),
         final_state=carry.node, final_brownout=carry.brownout)
+    if carry.keys is not None:
+        out["final_keys"] = carry.keys
     if intermittent is not None:
         out["final_intermittent"] = carry.intermittent
     if tel_spec is not None:
@@ -961,7 +1055,8 @@ def seeker_fleet_simulate_sharded(
         gen_params, har_cfg: HARConfig, mesh=None,
         aac_table: AACTable | None = None, costs: EnergyCosts | None = None,
         generator: torch.Generator | None = None, noise: dict | None = None,
-        quant_bits: int = 16, k_max: int = 12, m_samples: int = 20,
+        node_keys=None, quant_bits: int = 16, k_max: int = 12,
+        m_samples: int = 20,
         corr_threshold: float = 0.95, predictor_window: int = 8,
         initial_uj: float = 50.0, state0: SeekerNodeState | None = None,
         labels=None, alive=None, brownout: BrownoutConfig | None = None,
@@ -991,13 +1086,16 @@ def seeker_fleet_simulate_sharded(
     every returned trace.
 
     The noise does not depend on the layout: ``noise=`` (S, N, ...) is cut
-    to each rank's tile (padding rows zero), and with a ``generator`` every
-    rank draws the whole fleet's slot batch (:func:`draw_slot_noise`) from
-    its own generator, seeded alike on every rank, and keeps its tile.  So
-    a sharded run equals the single-device engine's with the same seed for
-    any world size: integer and energy traces exactly; the logits exactly
-    when the node blocks have the same shape (``node_block`` at most the
-    tile), else to the last bits of float32.
+    to each rank's tile (padding rows zero); with ``node_keys`` each rank
+    hashes only its tile's keys (padding nodes get inert zero keys, which
+    stay frozen since those nodes never run); and with a ``generator``
+    every rank draws the whole fleet's slot batch
+    (:func:`draw_slot_noise`) from its own generator, seeded alike on
+    every rank, and keeps its tile.  So a sharded run equals the
+    single-device engine's with the same noise source for any world size:
+    integer and energy traces exactly; the logits exactly when the node
+    blocks have the same shape (``node_block`` at most the tile), else to
+    the last bits of float32.
 
     Args (beyond :func:`seeker_fleet_simulate`'s):
         mesh: a ``DeviceMesh`` whose dims are named from ("pod", "data");
@@ -1009,6 +1107,7 @@ def seeker_fleet_simulate_sharded(
     dims the node axis split over).
     """
     dev = resolve_device(device)
+    _check_sources(generator, noise, node_keys)
     shard = node_shard(mesh if mesh is not None else _default_mesh(dev))
     costs = costs or EnergyCosts()
     n, s = tuple(_as_array(harvest).shape)
@@ -1068,22 +1167,30 @@ def seeker_fleet_simulate_sharded(
         it = (intermittent_fleet_init(hi - lo, har_cfg, dev)
               if intermittent_state0 is None
               else rows(intermittent_state0, fill=it_fill))
-    carry = FleetCarry(
-        node=state, intermittent=it, brownout=browned0,
-        telemetry=None if tel_spec is None else metrics_init(tel_spec, dev))
+    keys0 = None
     if noise is not None:
         tile_noise = _check_noise(noise, s, n, t, c, functools.partial(
             rows, dtype=torch.float32, dim=1))
 
-        def slot_noise(si):
-            return {k: v[si] for k, v in tile_noise.items()}
+        def slot_noise(si, keys):
+            return {k: v[si] for k, v in tile_noise.items()}, None
+    elif node_keys is not None:
+        # this tile's keys; padding nodes get inert zero keys
+        keys0 = _check_keys(node_keys, n,
+                            functools.partial(rows, dtype=torch.int64))
+
+        def slot_noise(si, keys):
+            return draw_slot_noise_keyed(keys, t, c)
     else:
         generator = _check_generator(generator, dev)
 
-        def slot_noise(si):
+        def slot_noise(si, keys):
             # the whole fleet's batch, from the same stream on every rank
             return {k: rows(v) for k, v in
-                    draw_slot_noise(generator, n, t, c).items()}
+                    draw_slot_noise(generator, n, t, c).items()}, None
+    carry = FleetCarry(
+        node=state, keys=keys0, intermittent=it, brownout=browned0,
+        telemetry=None if tel_spec is None else metrics_init(tel_spec, dev))
     params = _model_params(
         signatures=signatures, qdnn_params=qdnn_params,
         host_params=host_params, gen_params=gen_params, aac_table=aac_table,
@@ -1105,6 +1212,7 @@ def seeker_fleet_simulate_sharded(
     gathered["preds"] = torch.argmax(gathered["logits"], dim=-1)
     carry = FleetCarry(
         node=_gather_nodes(carry.node, shard, n),
+        keys=_gather_nodes(carry.keys, shard, n),
         brownout=_gather_nodes(carry.brownout, shard, n),
         intermittent=_gather_nodes(carry.intermittent, shard, n),
         telemetry=None if tel_spec is None else metrics_psum(
@@ -1121,6 +1229,7 @@ def seeker_fleet_simulate_sharded(
 def seeker_fleet_simulate_streamed(
         windows, harvest, *, chunk: int,
         generator: torch.Generator | None = None, noise: dict | None = None,
+        node_keys=None,
         state0: SeekerNodeState | None = None, labels=None, alive=None,
         brownout: BrownoutConfig | None = None, brownout_state0=None,
         intermittent: IntermittentConfig | None = None,
@@ -1133,7 +1242,8 @@ def seeker_fleet_simulate_streamed(
 
     Each segment runs through :func:`seeker_fleet_simulate` with the
     previous segment's ``final_state``, ``final_brownout``,
-    ``final_intermittent`` (at its global ``slot0``) and ``telemetry``, so
+    ``final_intermittent`` (at its global ``slot0``), ``final_keys`` and
+    ``telemetry``, so
     the chain is bitwise one long run, while only one (N, chunk, T, C)
     segment of windows is on the device.
 
@@ -1145,7 +1255,9 @@ def seeker_fleet_simulate_streamed(
         generator: one ``torch.Generator`` handed from segment to segment,
             so the draws go on slot by slot as in one long run (default
             ``manual_seed(0)`` on ``device``); or ``noise``, pre-drawn
-            (S, N, ...) tensors sliced per segment.
+            (S, N, ...) tensors sliced per segment; or ``node_keys``, the
+            per-node keys, chained from segment to segment through each
+            one's ``final_keys`` (returned as ``final_keys``).
         mesh: a ``DeviceMesh``: every segment runs through
             :func:`seeker_fleet_simulate_sharded` on it (every rank calls
             the driver with the same global inputs, and a ``generator``
@@ -1162,6 +1274,7 @@ def seeker_fleet_simulate_streamed(
     """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
+    _check_sources(generator, noise, node_keys)
     dev = resolve_device(device)
     harvest = to_device(harvest, dev, torch.float32)
     n, s = harvest.shape
@@ -1182,7 +1295,7 @@ def seeker_fleet_simulate_streamed(
     alive_full = None if alive is None else _resolve_alive(alive, n, s, dev)
     tasks, task = _resolve_tasks(tasks, task, n, dev)
     tel_spec = _resolve_telemetry(telemetry, intermittent, task)
-    if noise is None and generator is None:
+    if noise is None and generator is None and node_keys is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     engine = (seeker_fleet_simulate if mesh is None else functools.partial(
         seeker_fleet_simulate_sharded, mesh=mesh))
@@ -1191,6 +1304,7 @@ def seeker_fleet_simulate_streamed(
     counter_keys = fleet_counter_keys(active)
 
     state, browned, it_state = state0, brownout_state0, intermittent_state0
+    keys = node_keys
     tel_state = telemetry_state0
     parts, counters, res = [], {}, None
     bytes_on_wire = torch.zeros((), dtype=torch.float32, device=dev)
@@ -1204,6 +1318,8 @@ def seeker_fleet_simulate_streamed(
                    intermittent_state0=it_state, slot0=start, device=dev)
         if noise is not None:
             seg["noise"] = {k: v[start:stop] for k, v in noise.items()}
+        elif keys is not None:
+            seg["node_keys"] = keys
         else:
             seg["generator"] = generator
         if labels_full is not None:
@@ -1217,6 +1333,7 @@ def seeker_fleet_simulate_streamed(
                          **seg)
         state, browned = res["final_state"], res["final_brownout"]
         it_state = res.get("final_intermittent")
+        keys = res.get("final_keys")
         tel_state = res.get("telemetry")
         parts.append({k: res[k] for k in trace_keys})
         for k in counter_keys:
@@ -1233,6 +1350,8 @@ def seeker_fleet_simulate_streamed(
             counters["alive_slots"], min=1),
         raw_bytes_per_window=res["raw_bytes_per_window"],
         final_state=state, final_brownout=browned, n_chunks=-(-s // chunk))
+    if keys is not None:
+        out["final_keys"] = keys
     if intermittent is not None:
         out["final_intermittent"] = it_state
     if tel_spec is not None:

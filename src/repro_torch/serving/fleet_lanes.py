@@ -15,9 +15,10 @@ task identity (HAR wearables and bearing-vibration monitors in one fleet):
 a per-task scale on the whole energy ladder, optional per-task host
 weights, and per-task splits of the completion and accuracy counts.
 
-The port has no PRNG-key lane: its noise is injected per slot
-(:func:`repro_torch.serving.fleet.draw_slot_noise`), so nothing random is
-carried, and a dead node's noise is simply unused.
+The PRNG-key lane carries per-node noise keys only when a run is given
+``node_keys`` (:func:`repro_torch.serving.fleet.fleet_node_keys`); the
+generator and ``noise=`` sources inject each slot's noise and carry
+nothing, and a dead node's noise is then simply unused.
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ class FleetCarry(NamedTuple):
     carried lane; an absent lane is ``None``."""
 
     node: Any            # stacked SeekerNodeState, always present
+    keys: Any            # (N, 2) per-node noise keys | None
     brownout: Any        # (N,) bool browned-out flag, always present (all
                          # False when the brown-out lane is off)
     intermittent: Any    # stacked IntermittentState | None
@@ -272,7 +274,7 @@ def _task_telemetry_update(spec, metrics, out_trace, *, exo_alive_t, active,
 
 
 # ---------------------------------------------------------------------------
-# The registry, in the JAX package's order (without its PRNG-key lane).
+# The registry, in the JAX package's order.
 # ---------------------------------------------------------------------------
 
 FLEET_LANES: tuple[FleetLane, ...] = (
@@ -291,6 +293,15 @@ FLEET_LANES: tuple[FleetLane, ...] = (
         counter_keys=("decision_histogram", "completed", "alive_slots",
                       "correct"),
         telemetry=_node_telemetry, telemetry_update=_node_telemetry_update),
+    FleetLane(
+        name="prng",
+        doc="Per-node noise keys: node i's stream is hashed from (seed, i), "
+            "advanced each slot the node runs; a fleet of N nodes is "
+            "bit-compatible with N one-node runs and any shard layout.",
+        carry_field="keys", config_kwarg="node_keys",
+        init="repro_torch.serving.fleet:fleet_node_keys", freeze="keep",
+        resume_in=("node_keys",), resume_out=("final_keys",),
+        aggregates=(), trace_keys=(), counter_keys=()),
     FleetLane(
         name="churn",
         doc="Exogenous dropout/rejoin: an (N, S) alive trace input; dead "

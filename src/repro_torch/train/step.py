@@ -61,12 +61,59 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean next-token CE in float32.  logits (B,S,V), labels (B,S)
     integer; with ``mask`` (B,S) the masked mean."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
+    lse = (_split_logsumexp(logits) if _vocab_split(logits)
+           else torch.logsumexp(logits, dim=-1))
     ll = take_last(logits, labels)
     nll = lse - ll
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def _vocab_split(x) -> bool:
+    """Is ``x`` a DTensor with its last dim split?"""
+    return is_dtensor(x) and any(p.is_shard(x.ndim - 1)
+                                 for p in x.placements)
+
+
+class _LSE(torch.autograd.Function):
+    """The logsumexp of a row split over ``groups``: the local max and sum
+    of exponentials meet in all-reduces; the gradient, the softmax, is
+    local."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        from torch.distributed import _functional_collectives as funcol
+        top = torch.amax(x, dim=-1, keepdim=True)
+        for g in groups:
+            top = funcol.all_reduce(top, "max", g)
+        total = torch.sum(torch.exp(x - top), dim=-1, keepdim=True)
+        for g in groups:
+            total = funcol.all_reduce(total, "sum", g)
+        lse = torch.log(total) + top
+        ctx.save_for_backward(x, lse)
+        return lse[..., 0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, lse = ctx.saved_tensors
+        return grad[..., None] * torch.exp(x - lse), None
+
+
+def _split_logsumexp(x):
+    """``logsumexp(x, -1)`` of a DTensor whose last dim is split, each
+    rank on its own slice (DTensor alone may gather the batch instead)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, last = x.device_mesh, x.ndim - 1
+    groups = [(mesh, j) for j, p in enumerate(x.placements)
+              if p.is_shard(last)]
+    xp = list(x.placements)
+    op = [Replicate() if p.is_shard(last) else p for p in xp]
+    return local_map(lambda xl: _LSE.apply(xl, groups), out_placements=op,
+                     in_placements=(xp,), redistribute_inputs=True,
+                     device_mesh=mesh)(x)
 
 
 def make_loss_fn(cfg: ModelConfig):

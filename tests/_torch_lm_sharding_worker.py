@@ -12,7 +12,9 @@ on "model") and of the recurrentgemma one (one KV head: its q heads split
 within the group), one pure-DP step of the mamba2 smoke config, a restore of
 JAX's checkpoint onto the mesh, the state drawn onto the mesh leaf by leaf
 and saved from it, and a preempted and a clean sharded run of the
-fault-tolerant loop.  With one rank it runs the FSDP step (also with
+fault-tolerant loop, and decode steps of the tinyllama, recurrentgemma
+(split-KV) and mamba2 smoke configs on a placed cache against the same
+steps on plain tensors.  With one rank it runs the FSDP step (also with
 microbatches) and the DP+TP step on a (1, 1) mesh beside the unsharded and
 process-group steps.  It imports
 neither JAX nor the JAX package.
@@ -156,6 +158,11 @@ def four_ranks(b: dict, res: dict):
         leaves_with_paths(restore_checkpoint(ckpt, 1, plain)),
         leaves(plain))}
 
+    res["decode"] = {name: decode_on_mesh(b, name, mesh, rules)
+                     for name, rules in (("tinyllama-1.1b", fsdp),
+                                         ("recurrentgemma-2b", fsdp),
+                                         ("mamba2-130m", shd.PURE_DP_RULES))}
+
     res["loop"] = {}
     for kind, preempt in (("clean", ()), ("preempted", (5,))):
         st = init_train_state(torch.Generator().manual_seed(1), cut, hyper,
@@ -168,6 +175,51 @@ def four_ranks(b: dict, res: dict):
                 st, make_train_step(cut, hyper),
                 lambda s: {"tokens": torch.as_tensor(batches[s])}, loop)
         res["loop"][kind] = {"state": flat(st), "log": log}
+
+
+def decode_on_mesh(b: dict, name: str, mesh, rules, new: int = 2) -> dict:
+    """A prefill's cache placed by ``cache_specs`` (a split-KV cache where
+    the KV heads do not divide "model"), then ``new`` decode steps on the
+    mesh, against the same steps on plain tensors: the largest difference
+    of the logits, and each step's logits on the mesh as numpy."""
+    from repro_torch.models import (cache_specs, compute_params,
+                                    decode_step, forward, param_specs)
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    cfg = cfg_of(name, b["tiny_over"] if name == "tinyllama-1.1b" else {})
+    params = compute_params(train_state(b["tiny" if name == "tinyllama-1.1b"
+                                          else name])["params"], cfg)
+    prompt = torch.as_tensor(b[name + "/prompt"])
+    n, s = prompt.shape
+    length = s + new
+
+    def fresh_cache():
+        return forward(params, cfg, prompt, return_cache=True,
+                       cache_len=length)[1]
+
+    plain_cache, plain = fresh_cache(), []
+    tokens = torch.as_tensor(b[name + "/decode"])
+    for t in range(new):
+        logits, plain_cache = decode_step(params, cfg, plain_cache,
+                                          tokens[:, t:t + 1])
+        plain.append(logits)
+    cache = fresh_cache()
+    with shd.use_sharding(mesh, rules), implicit_replication():
+        placed_params = shd.place(params, shd.tree_named_shardings(
+            param_specs(cfg), params, mesh, rules))
+        cache = shd.place(cache, shd.tree_named_shardings(
+            cache_specs(cfg, n, length), cache, mesh, rules))
+        got, err = [], 0.0
+        for t in range(new):
+            tok = shd.place(tokens[:, t:t + 1], shd.named_sharding(
+                ("batch", None), (n, 1), mesh, rules))
+            logits, cache = decode_step(placed_params, cfg, cache, tok)
+            whole = logits.full_tensor()
+            err = max(err, float((whole - plain[t]).abs().max()))
+            got.append(whole.numpy())
+    split = {keystr(p): [str(q) for q in v.placements]
+             for p, v in leaves_with_paths(cache["runs"])}
+    return {"err": err, "logits": got, "placements": split}
 
 
 def one_rank(b: dict, res: dict):

@@ -4,7 +4,8 @@ Run as ``python tests/_torch_sharded_worker.py RANK WORLD STORE BUNDLE
 OUT``: the rank joins a ``WORLD``-rank gloo group through the ``FileStore``
 at ``STORE``, loads the inputs the test wrote to ``BUNDLE`` (``torch.save``
 of tensors and named tuples), drives every sharded entry point of the port
-on an (8,) ("data",) and a (2, 4) ("pod", "data") mesh, and writes what it
+on an (8,) ("data",) and a (2, 4) ("pod", "data") mesh (the noise from a
+generator, pre-drawn, or from per-node keys), and writes what it
 got to ``OUT`` (``torch.save``).  It imports neither JAX nor the JAX
 package; the inputs that only the parameters of a scenario decide are built
 here by :func:`lane_inputs` and :func:`task_inputs`, which the test calls
@@ -34,7 +35,7 @@ S, BLOCK = 6, 4
 N_LANES = 13            # the churn / brown-out / intermittent fleet
 N_TASKS = 13            # the mixed HAR and bearing fleet
 CHUNK = 4               # the streamed driver's segments
-LANE_SEED, TASK_SEED, NOISE_SEED = 11, 12, 13
+LANE_SEED, TASK_SEED, NOISE_SEED, KEY_SEED = 11, 12, 13, 14
 # the bare fleet's layouts: (N, mesh, node_block); with node_block 1 every
 # block has one node on one rank or eight, so even the logits are bitwise
 BARE = {"n3": (3, "data", BLOCK), "n8": (8, "data", BLOCK),
@@ -63,6 +64,14 @@ def lane_inputs() -> dict:
         brownout=BrownoutConfig(6.0, 30.0), initial_uj=12.0,
         intermittent=IntermittentConfig(1, 0.0), telemetry=True,
         node_block=BLOCK, device="cpu")
+
+
+def keyed_inputs() -> dict:
+    """The scarce-harvest fleet drawing its noise from per-node keys, in
+    node blocks of one, so that even the logits compare bitwise."""
+    return dict(lane_inputs(), node_block=1,
+                node_keys=repro_torch.fleet_node_keys(KEY_SEED, N_LANES,
+                                                      "cpu"))
 
 
 def task_inputs() -> dict:
@@ -138,6 +147,12 @@ def run_rank(bundle: dict, meshes: dict) -> dict:
     out["streamed"] = _cpu(repro_torch.seeker_fleet_simulate_streamed(
         w, h, chunk=CHUNK, mesh=meshes["data"], generator=noise_gen(),
         **lanes))
+    keyed = keyed_inputs()
+    w, h = keyed.pop("windows"), keyed.pop("harvest")
+    out["keyed"] = _cpu(repro_torch.seeker_fleet_simulate_sharded(
+        w, h, mesh=meshes["pod"], **keyed))
+    out["keyed_streamed"] = _cpu(repro_torch.seeker_fleet_simulate_streamed(
+        w, h, chunk=CHUNK, mesh=meshes["data"], **keyed))
     tasks = task_inputs()
     w, h = tasks.pop("windows"), tasks.pop("harvest")
     out["tasks"] = _cpu(repro_torch.seeker_fleet_simulate_sharded(

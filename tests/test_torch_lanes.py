@@ -389,7 +389,7 @@ def test_lane_registry_names_the_results(scarce):
     res = scarce["res"]
     params = inspect.signature(repro_torch.seeker_fleet_simulate).parameters
     names = [ln.name for ln in fleet_lanes.FLEET_LANES]
-    assert names == ["node", "churn", "brownout", "intermittent",
+    assert names == ["node", "prng", "churn", "brownout", "intermittent",
                      "telemetry", "task"]
     on = frozenset({"brownout", "intermittent"})
     for ln in fleet_lanes.FLEET_LANES:

@@ -351,6 +351,9 @@ def runs(tmp_path_factory):
     for name in ("deepseek-moe-16b", "recurrentgemma-2b", "mamba2-130m"):
         b[name] = _state(cfgs[name])
         b[name + "/batch"] = [_tokens(cfgs[name], 4, 33, 2)]
+    for name in ("tinyllama-1.1b", "recurrentgemma-2b", "mamba2-130m"):
+        b[name + "/prompt"] = _tokens(cfgs[name], 4, 16, 3)
+        b[name + "/decode"] = _tokens(cfgs[name], 4, 2, 4)
     jckpt.save_checkpoint(b["ckpt"], 3, jax.tree_util.tree_map(
         jnp.asarray, b["tiny"]))
     with open(tmp / "bundle.pkl", "wb") as f:
@@ -552,6 +555,28 @@ def test_preempted_sharded_run_is_bitwise_a_clean_one(runs):
         np.testing.assert_array_equal(
             clean["state"]["['params']['embed']"],
             runs["ranks"][0]["loop"]["clean"]["state"]["['params']['embed']"])
+
+
+@pytest.mark.parametrize("name", ["tinyllama-1.1b", "recurrentgemma-2b",
+                                  "mamba2-130m"])
+def test_decode_on_the_mesh_equals_the_unsharded_decode(runs, name):
+    """Two decode steps on 4 gloo ranks from a prefill's cache placed by
+    ``cache_specs``: tinyllama's and recurrentgemma's attention caches
+    split on the sequence over "model" (split-KV: their KV heads do not
+    divide the axis), their softmax met in all-reduces; mamba2's state by
+    batch rows.  The logits equal the plain decode's within 1e-5 on every
+    rank (the split softmax sums in another order)."""
+    for rank in runs["ranks"]:
+        got = rank["decode"][name]
+        assert got["err"] <= 1e-5, (name, got["err"])
+        for a, b in zip(got["logits"], runs["ranks"][0]["decode"][name][
+                "logits"]):
+            np.testing.assert_array_equal(a, b)
+    split = runs["ranks"][0]["decode"][name]["placements"]
+    if name != "mamba2-130m":
+        # the (L, B, W, G, Dh) cache: batch over "data", W over "model"
+        assert all(p == ["S(1)", "S(2)"] for k, p in split.items()
+                   if k.endswith("['k']")), split
 
 
 @pytest.mark.parametrize("step", ["fsdp", "fsdp_micro", "dptp"])

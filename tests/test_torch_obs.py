@@ -209,17 +209,26 @@ ACTIVE_SETS = (frozenset(), frozenset({"brownout"}),
                frozenset({"brownout", "intermittent", "task", "task:3"}))
 
 
+# the port's PRNG-key lane is on only with ``node_keys=`` (the generator
+# and ``noise=`` sources carry no keys), and its keys are counter hashes,
+# not ``fold_in``: its switch and its doc differ from the reference's
+PRNG_OWN = {"config_kwarg": "node_keys"}
+
+
 def test_fleet_lanes_mirror_jax():
-    jax_lanes = [ln for ln in jlanes.FLEET_LANES if ln.name != "prng"]
+    jax_lanes = jlanes.FLEET_LANES
     assert ([ln.name for ln in tlanes.FLEET_LANES]
             == [ln.name for ln in jax_lanes])
-    assert tlanes.FleetCarry._fields == tuple(
-        f for f in jlanes.FleetCarry._fields if f != "keys")
+    assert tlanes.FleetCarry._fields == jlanes.FleetCarry._fields
     assert tlanes.FREEZE_KINDS == jlanes.FREEZE_KINDS
     for port, ref in zip(tlanes.FLEET_LANES, jax_lanes):
         for field in dataclasses.fields(ref):
             got, want = getattr(port, field.name), getattr(ref, field.name)
-            if field.name == "init":
+            if port.name == "prng" and field.name == "doc":
+                assert "(seed, i)" in got
+            elif port.name == "prng" and field.name in PRNG_OWN:
+                assert (want, got) == (None, PRNG_OWN[field.name])
+            elif field.name == "init":
                 assert got == want.replace("repro.", "repro_torch.", 1)
             elif field.name == "aggregates":
                 assert got == tuple(RENAMED.get(a, a) for a in want)
@@ -238,8 +247,9 @@ def test_fleet_lanes_mirror_jax():
         assert (tlanes.fleet_counter_keys(active)
                 == jlanes.fleet_counter_keys(active))
     assert tlanes.fleet_lane("task").freeze == "static"
+    assert tlanes.fleet_lane("prng").carry_field == "keys"
     with pytest.raises(KeyError, match="registered"):
-        tlanes.fleet_lane("prng")
+        tlanes.fleet_lane("rng")
 
 
 @pytest.mark.parametrize("intermittent,n_tasks", [(False, 0), (True, 0),

@@ -7,8 +7,9 @@ and 13 on an (8,) ("data",) mesh and at N = 13 on a (2, 4) ("pod",
 "data") mesh; churn, brown-out, the intermittent lane and labels; the mixed
 HAR and bearing task lane with telemetry; the streamed driver on the mesh;
 ``fleet_serve_step`` in its gather/direct, gather/queue and per-shard host
-modes; and ``edge_host_serve_step`` on the (2, 4) mesh.  S = 6 slots,
-``node_block`` 4.
+modes; ``edge_host_serve_step`` on the (2, 4) mesh; and the lanes' fleet
+again with per-node keyed noise, sharded and streamed.  S = 6 slots,
+``node_block`` 4 (1 for the keyed runs).
 
 Against the port's single-device engine with the same noise: integer and
 energy traces and every aggregate and telemetry lane exactly equal; the
@@ -199,6 +200,9 @@ def _single_device(b: dict) -> dict:
     out["lanes"] = repro_torch.seeker_fleet_simulate(
         lanes.pop("windows"), lanes.pop("harvest"),
         generator=worker.noise_gen(), **lanes)
+    keyed = worker.keyed_inputs()
+    out["keyed"] = repro_torch.seeker_fleet_simulate(
+        keyed.pop("windows"), keyed.pop("harvest"), **keyed)
     tasks = worker.task_inputs()
     out["tasks"] = repro_torch.seeker_fleet_simulate(
         tasks.pop("windows"), tasks.pop("harvest"),
@@ -374,6 +378,20 @@ def test_streamed_on_the_mesh_is_one_long_run(runs):
     got, want = runs["ranks"][0]["streamed"], runs["single"]["lanes"]
     assert got["n_chunks"] == 2 and got["padded_nodes"] == 3
     _assert_run_equal(got, want, LANE_EXACT, "streamed")
+    _equal(got["final_state"].stored_uj, want["final_state"].stored_uj,
+           "final stored")
+
+
+@pytest.mark.parametrize("run", ["keyed", "keyed_streamed"])
+def test_keyed_sharded_equals_single_device(runs, run):
+    """Per-node keyed noise: each rank hashes only its tile's keys, so the
+    sharded run (and the streamed one, its segments chained through
+    ``final_keys``) is bitwise the single-device keyed run, the logits
+    included (node blocks of one), the final keys too."""
+    got, want = runs["ranks"][0][run], runs["single"]["keyed"]
+    assert int((~got["alive"]).sum()) > 0 and int(want["brownout_slots"]) > 0
+    assert got["padded_nodes"] == 3
+    _assert_run_equal(got, want, LANE_EXACT + ("logits", "final_keys"), run)
     _equal(got["final_state"].stored_uj, want["final_state"].stored_uj,
            "final stored")
 
