@@ -1,0 +1,13 @@
+"""Host time of the host tier's cache, recovery and DNN a slot: self time of
+the ``host.batch``, ``host.cache``, ``host.recover``, ``host.dnn``,
+``host.ensemble`` and ``host.finish`` spans over the traced segment's
+``host.serve_step`` spans, in ms: host time read under the profiler, which
+slows the host about 2x, so an upper bound of the untraced run's
+(``perfbench/spans.py``)."""
+from perfbench.spans import ms_per_slot
+
+
+def read(run):
+    return ms_per_slot(run, ("host.batch", "host.cache", "host.recover",
+                             "host.dnn", "host.ensemble", "host.finish"),
+                       "host.serve_step")

@@ -7,7 +7,11 @@ the fleet are stamped with QoS deadlines and pushed into the
 EDF microbatches; each batch is looked up in the recovery cache, recovered
 (cluster-ball resynthesis or the generator, by entry kind) and run through
 the full-precision HAR DNN; per-node results accumulate into a mean-logit
-ensemble and a majority-vote histogram.
+ensemble and a majority-vote histogram.  Each phase is a
+:mod:`repro_torch.obs.trace` span: ``host.ingest``, one ``host.batch`` a
+microbatch holding ``host.pop``, ``host.cache``, ``host.recover``,
+``host.dnn`` and ``host.ensemble``, ``host.telemetry`` wherever the lanes
+move, and ``host.finish``.
 
 What differs from the reference, and why:
 
@@ -54,6 +58,7 @@ from ..core.counter_hash import (box_muller, counter_words, fmix32,
 from ..core.recovery import (GeneratorParams, recover_cluster_window,
                              recover_sampling_window)
 from ..models.har import har_apply
+from ..obs import trace as obs_trace
 from ..obs import (MetricsSpec, counter, counter_add, gauge, gauge_set,
                    hist_observe, histogram, metrics_init, metrics_summary)
 from ..obs.compile_guard import compile_event, compile_key_counts
@@ -454,79 +459,96 @@ def _slot_body(cfg: HostServeConfig, consts: _SlotConsts,
             "build the state with host_server_init(cfg) using the SAME "
             "telemetry setting (the lanes are part of the resumable carry)")
     now = state.slot
-    queue, _ = push_lane(state.queue, entries, node_ids, now,
-                         now + cfg.qos_slots, mask)
+    with obs_trace.span("host.ingest"):
+        queue, _ = push_lane(state.queue, entries, node_ids, now,
+                             now + cfg.qos_slots, mask)
     if tel is not None:
-        metrics = counter_add(
-            tel, metrics, "host.drops_overflow",
-            queue.drops_overflow - state.queue.drops_overflow)
+        with obs_trace.span("host.telemetry"):
+            metrics = counter_add(
+                tel, metrics, "host.drops_overflow",
+                queue.drops_overflow - state.queue.drops_overflow)
 
     cache = state.cache
     served, missed_total = state.served, state.deadline_misses
     ens_l, ens_v = state.ensemble_logits, state.ensemble_votes
     outs = []
-    for _ in range(cfg.batches_per_slot):
-        queue, batch, missed = edf_pop_batch(queue, cfg.batch_size, now=now)
-        missed_total = missed_total + missed
-        valid = batch.valid
-        if tel is not None:
-            sojourn = batch_wait_slots(batch, now)
-            is_cluster = valid & (batch.payload.kind == CLUSTER_KIND)
-            is_sampling = valid & (batch.payload.kind == SAMPLING_KIND)
-            metrics = hist_observe(tel, metrics, "host.sojourn_slots",
-                                   sojourn, valid)
-            metrics = hist_observe(tel, metrics, "host.e2e_slots",
-                                   sojourn + 1, valid)
-            metrics = hist_observe(tel, metrics, "host.sojourn_slots.cluster",
-                                   sojourn, is_cluster)
-            metrics = hist_observe(tel, metrics,
-                                   "host.sojourn_slots.sampling",
-                                   sojourn, is_sampling)
-            metrics = counter_add(tel, metrics, "host.served", valid)
-            metrics = counter_add(tel, metrics, "host.deadline_misses",
-                                  missed)
+    for bi in range(cfg.batches_per_slot):
+        with obs_trace.span("host.batch", {"batch": bi}):
+            with obs_trace.span("host.pop"):
+                queue, batch, missed = edf_pop_batch(queue, cfg.batch_size,
+                                                     now=now)
+                missed_total = missed_total + missed
+                valid = batch.valid
+            with obs_trace.span("host.cache"):
+                sigs = batch_signatures(batch.payload)           # (B, 2)
+                hit, cached = cache_lookup_batch(cache, sigs, valid)
+            with obs_trace.span("host.recover"):
+                wins = _entry_windows(batch.payload, gen_params,
+                                      noise_fn(sigs), cfg.t, valid)
+            with obs_trace.span("host.dnn"):
+                computed = _host_dnn(cfg, host_params, wins,
+                                     batch.payload.task, consts)
+            with obs_trace.span("host.ensemble"):
+                # an all-hit batch answers every row from the cache (the
+                # reference skips recovery and the DNN for it); otherwise
+                # the hits do
+                all_hit = (hit | ~valid).all()
+                logits = torch.where(all_hit | hit[:, None], cached, computed)
+                served = served + valid.sum().to(torch.int32)
+                # per-node ensemble: mean-logit sum + majority-vote histogram
+                nid = torch.clamp(torch.where(valid, batch.node_id, 0), 0,
+                                  cfg.n_nodes - 1).to(torch.int64)
+                w = valid.to(torch.float32)[:, None]
+                ens_l = ens_l.index_add(0, nid, logits * w)
+                votes = ((torch.argmax(logits, dim=-1)[:, None]
+                          == consts.classes) & valid[:, None]).to(torch.int32)
+                ens_v = ens_v.index_add(0, nid, votes)
+                outs.append(SlotOutput(batch.node_id, logits, batch.deadline,
+                                       hit, valid))
+            with obs_trace.span("host.cache"):
+                fresh = valid & ~hit
+                cache = cache_insert_batch(cache, sigs, logits, fresh)
+                cache = cache._replace(
+                    hits=cache.hits + hit.sum().to(torch.int32),
+                    misses=cache.misses + fresh.sum().to(torch.int32))
+            if tel is not None:
+                with obs_trace.span("host.telemetry"):
+                    metrics = _batch_telemetry(tel, metrics, batch, now,
+                                               missed, hit, fresh)
 
-        sigs = batch_signatures(batch.payload)                   # (B, 2)
-        hit, cached = cache_lookup_batch(cache, sigs, valid)
-        wins = _entry_windows(batch.payload, gen_params, noise_fn(sigs),
-                              cfg.t, valid)
-        computed = _host_dnn(cfg, host_params, wins, batch.payload.task,
-                             consts)
-        # an all-hit batch answers every row from the cache (the reference
-        # skips recovery and the DNN for it); otherwise the hits do
-        all_hit = (hit | ~valid).all()
-        logits = torch.where(all_hit | hit[:, None], cached, computed)
-
-        fresh = valid & ~hit
-        cache = cache_insert_batch(cache, sigs, logits, fresh)
-        cache = cache._replace(
-            hits=cache.hits + hit.sum().to(torch.int32),
-            misses=cache.misses + fresh.sum().to(torch.int32))
-        served = served + valid.sum().to(torch.int32)
-        if tel is not None:
-            metrics = counter_add(tel, metrics, "host.cache_hits", hit)
-            metrics = counter_add(tel, metrics, "host.cache_misses", fresh)
-
-        # per-node ensemble: mean-logit sum + majority-vote histogram
-        nid = torch.clamp(torch.where(valid, batch.node_id, 0), 0,
-                          cfg.n_nodes - 1).to(torch.int64)
-        w = valid.to(torch.float32)[:, None]
-        ens_l = ens_l.index_add(0, nid, logits * w)
-        votes = ((torch.argmax(logits, dim=-1)[:, None] == consts.classes)
-                 & valid[:, None]).to(torch.int32)
-        ens_v = ens_v.index_add(0, nid, votes)
-        outs.append(SlotOutput(batch.node_id, logits, batch.deadline, hit,
-                               valid))
-
-    out = SlotOutput(*(torch.cat(xs, dim=0) for xs in zip(*outs)))
     if tel is not None:
-        metrics = gauge_set(tel, metrics, "host.backlog",
-                            queue_occupancy(queue))
-        metrics = hist_observe(tel, metrics, "host.backlog_age_slots",
-                               queue_wait_slots(queue, now), queue.valid)
-    new_state = HostServerState(queue, cache, (now + 1).to(torch.int32),
-                                served, missed_total, ens_l, ens_v, metrics)
+        with obs_trace.span("host.telemetry"):
+            metrics = gauge_set(tel, metrics, "host.backlog",
+                                queue_occupancy(queue))
+            metrics = hist_observe(tel, metrics, "host.backlog_age_slots",
+                                   queue_wait_slots(queue, now), queue.valid)
+    with obs_trace.span("host.finish"):
+        out = SlotOutput(*(torch.cat(xs, dim=0) for xs in zip(*outs)))
+        new_state = HostServerState(queue, cache, (now + 1).to(torch.int32),
+                                    served, missed_total, ens_l, ens_v,
+                                    metrics)
     return new_state, out
+
+
+def _batch_telemetry(tel: MetricsSpec, metrics: dict, batch, now, missed,
+                     hit: torch.Tensor, fresh: torch.Tensor) -> dict:
+    """The telemetry lanes of one microbatch: sojourn and end-to-end
+    histograms (all, cluster and sampling frames), served, deadline
+    misses, cache hits and misses."""
+    valid = batch.valid
+    sojourn = batch_wait_slots(batch, now)
+    is_cluster = valid & (batch.payload.kind == CLUSTER_KIND)
+    is_sampling = valid & (batch.payload.kind == SAMPLING_KIND)
+    metrics = hist_observe(tel, metrics, "host.sojourn_slots", sojourn, valid)
+    metrics = hist_observe(tel, metrics, "host.e2e_slots", sojourn + 1, valid)
+    metrics = hist_observe(tel, metrics, "host.sojourn_slots.cluster",
+                           sojourn, is_cluster)
+    metrics = hist_observe(tel, metrics, "host.sojourn_slots.sampling",
+                           sojourn, is_sampling)
+    metrics = counter_add(tel, metrics, "host.served", valid)
+    metrics = counter_add(tel, metrics, "host.deadline_misses", missed)
+    metrics = counter_add(tel, metrics, "host.cache_hits", hit)
+    return counter_add(tel, metrics, "host.cache_misses", fresh)
 
 
 def _noise_fn(cfg: HostServeConfig, seed: int, noise_fn):
@@ -548,11 +570,12 @@ def host_serve_slot(state: HostServerState, entries: HostPayload,
     is ``noise_fn(sigs)``, by default :func:`counter_noise` with ``seed``.
     Runs on the device of ``state``."""
     _check_lane_width(cfg, entries.kind.shape[0])
-    dev = state.slot.device
-    consts = _slot_consts(cfg, "slot", entries.kind.shape[0], dev)
-    return _slot_body(cfg, consts, state, entries,
-                      torch.as_tensor(node_ids, device=dev).to(torch.int32),
-                      torch.as_tensor(mask, device=dev).to(torch.bool),
+    with obs_trace.span("host.ingest"):
+        dev = state.slot.device
+        consts = _slot_consts(cfg, "slot", entries.kind.shape[0], dev)
+        node_ids = torch.as_tensor(node_ids, device=dev).to(torch.int32)
+        mask = torch.as_tensor(mask, device=dev).to(torch.bool)
+    return _slot_body(cfg, consts, state, entries, node_ids, mask,
                       host_params, gen_params, _noise_fn(cfg, seed, noise_fn))
 
 
@@ -590,16 +613,18 @@ def serve_fleet_payloads(state: HostServerState, wire: WirePayload,
     microbatches to cover them at the configured batch size.  ``mask`` is
     the round's (B,) alive mask (a dead node sends no frame); ``node_tasks``
     the (B,) task ids of a mixed fleet."""
-    entries = cluster_entries(wire, cfg.m, tasks=node_tasks)
-    b = entries.kind.shape[0]
-    if b > cfg.queue_capacity:
-        raise ValueError(
-            f"fleet round of {b} payloads exceeds queue capacity "
-            f"{cfg.queue_capacity}; raise HostServeConfig.queue_capacity")
-    cfg = dataclasses.replace(cfg, batches_per_slot=-(-b // cfg.batch_size))
-    dev = state.slot.device
-    mask = (torch.ones((b,), dtype=torch.bool, device=dev) if mask is None
-            else mask)
+    with obs_trace.span("host.ingest"):
+        entries = cluster_entries(wire, cfg.m, tasks=node_tasks)
+        b = entries.kind.shape[0]
+        if b > cfg.queue_capacity:
+            raise ValueError(
+                f"fleet round of {b} payloads exceeds queue capacity "
+                f"{cfg.queue_capacity}; raise HostServeConfig.queue_capacity")
+        cfg = dataclasses.replace(cfg,
+                                  batches_per_slot=-(-b // cfg.batch_size))
+        dev = state.slot.device
+        mask = (torch.ones((b,), dtype=torch.bool, device=dev)
+                if mask is None else mask)
     return host_serve_slot(state, entries, node_ids, mask, cfg=cfg,
                            host_params=host_params, gen_params=gen_params,
                            seed=seed, noise_fn=noise_fn)

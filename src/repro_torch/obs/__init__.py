@@ -3,8 +3,9 @@
 * :mod:`repro_torch.obs.registry`: counter, gauge and histogram lanes
   declared once and held as int32 tensors, exact and merge-able across
   segments;
-* :mod:`repro_torch.obs.trace`: wall-clock spans that wait for the card
-  before closing, exported as Chrome-trace JSON;
+* :mod:`repro_torch.obs.trace`: host spans at the hot paths' layer
+  boundaries, live under ``enable()`` or a recording profiler (then also
+  its annotations), exported as Chrome-trace JSON;
 * :mod:`repro_torch.obs.compile_guard`: builds per distinct shape counted,
   with a budget that raises.
 """

@@ -1,38 +1,56 @@
-"""Wall-clock span tracer with Chrome-trace (Perfetto) JSON export.
+"""Host spans of the port's hot paths, on the profiler's clock, with
+Chrome-trace (Perfetto) JSON export.
 
-PyTorch counterpart of :mod:`repro.obs.trace`.  :func:`span` records a
-wall-clock span around a block; CUDA work is asynchronous, so a span can
-``flush`` first: given tensors (any nested dict/tuple of them) or a
-zero-argument callable returning them, it calls
-``torch.cuda.synchronize()`` before the end timestamp when one of them lies
-on a CUDA device, and the device work is inside the span.
+PyTorch counterpart of :mod:`repro.obs.trace`.  :func:`span` marks a block
+of host code at a layer boundary (``fleet.slot``, ``host.batch``, ...).  A
+span is live when :func:`enable` was called or while a ``torch.profiler``
+records; otherwise it returns one shared null context, so an off span reads
+no clock, enters no ``record_function`` and builds no event.
 
-Tracing is off by default, and then a span runs its body with no clock
-read, no flush and no event.  :func:`export_chrome_trace` writes the
-``{"traceEvents": [...]}`` format (``ph: "X"`` complete events in µs) that
-Perfetto and ``chrome://tracing`` load.
+A live span appends ``{name, ts, dur, id, parent, tid, args}`` to the
+in-memory buffer (:func:`events`): ``ts`` and ``dur`` in µs, ``ts`` after
+:data:`BASE_NS` on the Unix clock, the convention of a profiler trace's
+``ts`` and ``baseTimeNanoseconds``; ``parent`` the id of the enclosing live
+span on the same thread (None at the top).  While a profiler records, the
+span also enters ``record_function(name)``, so it sits in the profiler's
+trace as a ``user_annotation`` beside the device's kernels.  A span never
+reads a device value and never synchronises: it times the host's enqueue,
+and the device's time comes from the profiler's trace.
+
+:func:`self_times` gives each name's count and self time (duration less
+its children's); :func:`export_chrome_trace` writes the buffer as
+``{"traceEvents": [...]}`` (``ph: "X"`` complete events) for Perfetto and
+``chrome://tracing``.
 """
 from __future__ import annotations
 
-import contextlib
+import itertools
 import json
 import os
 import threading
 import time
+from collections import defaultdict
 
-import torch
+import torch.autograd.profiler as _profiler
 
-__all__ = ["enable", "enabled", "clear", "span", "instant", "events",
-           "export_chrome_trace"]
+__all__ = ["BASE_NS", "enable", "enabled", "clear", "span", "events",
+           "self_times", "export_chrome_trace"]
 
 _LOCK = threading.Lock()
 _ENABLED = False
 _EVENTS: list[dict] = []
-_T0_NS = time.perf_counter_ns()
+_IDS = itertools.count(1)
+_OPEN = threading.local()            # per thread: the ids of open spans
+# _clock() + _TO_UNIX_NS is the Unix clock in ns (monotonic, set against
+# the Unix clock once at import); BASE_NS the whole second before that
+_clock = time.perf_counter_ns
+BASE_NS = time.time_ns() // 10 ** 9 * 10 ** 9
+_TO_UNIX_NS = time.time_ns() - _clock()
 
 
 def enable(on: bool = True) -> None:
-    """Switch span recording on or off for the process."""
+    """Switch span recording on or off for the process (a recording
+    profiler turns spans on by itself)."""
     global _ENABLED
     _ENABLED = on
 
@@ -47,67 +65,100 @@ def clear() -> None:
         _EVENTS.clear()
 
 
-def _now_us() -> float:
-    return (time.perf_counter_ns() - _T0_NS) / 1e3
+class _Off:
+    """The shared context of a span that is off."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
 
 
-def _record(ev: dict) -> None:
-    with _LOCK:
-        _EVENTS.append(ev)
+_OFF = _Off()
 
 
-def _on_cuda(tree) -> bool:
-    if isinstance(tree, torch.Tensor):
-        return tree.is_cuda
-    if isinstance(tree, dict):
-        return any(_on_cuda(v) for v in tree.values())
-    if isinstance(tree, (tuple, list)):
-        return any(_on_cuda(v) for v in tree)
-    return False
+class _Span:
+    __slots__ = ("name", "args", "annotation", "id", "parent", "t0")
+
+    def __init__(self, name: str, args: dict | None, profiling: bool):
+        self.name, self.args = name, args
+        self.annotation = (_profiler.record_function(name) if profiling
+                           else None)
+
+    def __enter__(self):
+        if self.annotation is not None:
+            self.annotation.__enter__()
+        stack = getattr(_OPEN, "ids", None)
+        if stack is None:
+            stack = _OPEN.ids = []
+        self.parent = stack[-1] if stack else None
+        self.id = next(_IDS)
+        stack.append(self.id)
+        self.t0 = _clock()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        t1 = _clock()
+        _OPEN.ids.pop()
+        ev = {"name": self.name,
+              "ts": (self.t0 + _TO_UNIX_NS - BASE_NS) / 1e3,
+              "dur": (t1 - self.t0) / 1e3, "id": self.id,
+              "parent": self.parent, "tid": threading.get_ident(),
+              "args": self.args or {}}
+        with _LOCK:
+            _EVENTS.append(ev)
+        if self.annotation is not None:
+            self.annotation.__exit__(exc_type, exc, tb)
+        return False
 
 
-@contextlib.contextmanager
-def span(name: str, cat: str = "repro", args: dict | None = None,
-         flush=None):
-    """Record a wall-clock span around a block.  ``flush``: tensors or a
-    callable returning them; the span waits for the card
-    (``torch.cuda.synchronize``) before closing when one of them is on
-    CUDA."""
-    if not _ENABLED:
-        yield
-        return
-    t0 = _now_us()
-    try:
-        yield
-    finally:
-        if flush is not None and _on_cuda(flush() if callable(flush)
-                                          else flush):
-            torch.cuda.synchronize()
-        _record({"name": name, "cat": cat, "ph": "X", "ts": t0,
-                 "dur": _now_us() - t0, "pid": os.getpid(),
-                 "tid": threading.get_ident(),
-                 **({"args": args} if args else {})})
-
-
-def instant(name: str, cat: str = "repro", args: dict | None = None) -> None:
-    """Record a zero-duration instant event."""
-    if not _ENABLED:
-        return
-    _record({"name": name, "cat": cat, "ph": "i", "s": "p",
-             "ts": _now_us(), "pid": os.getpid(),
-             "tid": threading.get_ident(),
-             **({"args": args} if args else {})})
+def span(name: str, args: dict | None = None):
+    """A context around a block of host code: live under :func:`enable` or
+    a recording profiler, else the shared null context.  ``args``: host
+    ints to keep with the event (never a device value)."""
+    profiling = _profiler._is_profiler_enabled
+    if not (_ENABLED or profiling):
+        return _OFF
+    return _Span(name, args, profiling)
 
 
 def events() -> list[dict]:
-    """A copy of the recorded events."""
+    """A copy of the recorded events, in the order they closed."""
     with _LOCK:
         return [dict(e) for e in _EVENTS]
 
 
+def self_times(evs: list[dict]) -> dict:
+    """``{name: (count, self µs)}`` over ``evs``: each span's duration less
+    the union of its children's intervals, summed by name."""
+    children = defaultdict(list)
+    for e in evs:
+        if e["parent"] is not None:
+            children[e["parent"]].append((e["ts"], e["ts"] + e["dur"]))
+    out = {}
+    for e in evs:
+        start, end = e["ts"], e["ts"] + e["dur"]
+        covered, reach = 0.0, start
+        for a, b in sorted(children.get(e["id"], ())):
+            a, b = max(a, reach), min(b, end)
+            if b > a:
+                covered += b - a
+                reach = b
+        count, took = out.get(e["name"], (0, 0.0))
+        out[e["name"]] = (count + 1, took + e["dur"] - covered)
+    return out
+
+
 def export_chrome_trace(path: str) -> int:
     """Write the recorded events as Chrome-trace JSON; returns how many."""
-    evs = events()
+    pid = os.getpid()
+    evs = [{"name": e["name"], "cat": "repro", "ph": "X", "ts": e["ts"],
+            "dur": e["dur"], "pid": pid, "tid": e["tid"],
+            "args": {**e["args"], "id": e["id"], "parent": e["parent"]}}
+           for e in events()]
     with open(path, "w") as f:
-        json.dump({"traceEvents": evs, "displayTimeUnit": "ms"}, f)
+        json.dump({"traceEvents": evs, "displayTimeUnit": "ms",
+                   "baseTimeNanoseconds": BASE_NS}, f)
     return len(evs)

@@ -51,6 +51,7 @@ from ..kernels.ops import signature_corr_op
 from ..models.har import (HARConfig, har_act_buffer, har_apply,
                           har_apply_aux, har_apply_quantized_nodes,
                           har_apply_stage, quantize_params)
+from ..obs import trace as obs_trace
 from ..sharding import all_gather_tiles, all_reduce_sum, exchange, node_shard
 
 __all__ = ["SeekerNodeState", "SensorStepOut", "seeker_node_init",
@@ -874,64 +875,67 @@ def fleet_serve_step(windows, *, host_params, har_cfg: HARConfig, mesh=None,
     from .fleet import _as_array, _gather_nodes, _tile, resolve_device, \
         to_device
 
-    if per_shard_host and mesh is None:
-        raise ValueError("per_shard_host=True runs one host server per node "
-                         "shard: pass the mesh")
-    dev = resolve_device(device)
-    shard = None if mesh is None else node_shard(mesh)
     n, t, c = tuple(_as_array(windows).shape)
-    if engine_alive is not None:
-        engine_alive = to_device(engine_alive, dev, torch.bool)
-        if tuple(engine_alive.shape) != (n,):
-            raise ValueError(f"engine_alive must be (N,)=({n},), got "
-                             f"{tuple(engine_alive.shape)}")
-        alive = engine_alive if alive is None else \
-            to_device(alive, dev, torch.bool) & engine_alive
-    if alive is not None:
-        alive = to_device(alive, dev, torch.bool)
-        if tuple(alive.shape) != (n,):
-            raise ValueError(f"alive must be (N,)=({n},), got "
-                             f"{tuple(alive.shape)}")
-        if host_state is None:
-            raise ValueError("alive/engine_alive is a queue-mode argument: "
-                             "without a host_state there is no queue to "
-                             "keep dead nodes out of")
-    if per_shard_host:
-        return _fleet_serve_per_shard(
-            windows, n=n, t=t, c=c, k=k, shard=shard,
-            host_params=host_params, host_state=host_state,
-            serve_cfg=serve_cfg, gen_params=gen_params, alive=alive,
-            seed=seed, noise_fn=noise_fn, dev=dev)
+    with obs_trace.span("host.serve_step", {"nodes": n, "k": k}):
+        if per_shard_host and mesh is None:
+            raise ValueError("per_shard_host=True runs one host server per "
+                             "node shard: pass the mesh")
+        dev = resolve_device(device)
+        shard = None if mesh is None else node_shard(mesh)
+        if engine_alive is not None:
+            engine_alive = to_device(engine_alive, dev, torch.bool)
+            if tuple(engine_alive.shape) != (n,):
+                raise ValueError(f"engine_alive must be (N,)=({n},), got "
+                                 f"{tuple(engine_alive.shape)}")
+            alive = engine_alive if alive is None else \
+                to_device(alive, dev, torch.bool) & engine_alive
+        if alive is not None:
+            alive = to_device(alive, dev, torch.bool)
+            if tuple(alive.shape) != (n,):
+                raise ValueError(f"alive must be (N,)=({n},), got "
+                                 f"{tuple(alive.shape)}")
+            if host_state is None:
+                raise ValueError("alive/engine_alive is a queue-mode "
+                                 "argument: without a host_state there is no "
+                                 "queue to keep dead nodes out of")
+        if per_shard_host:
+            return _fleet_serve_per_shard(
+                windows, n=n, t=t, c=c, k=k, shard=shard,
+                host_params=host_params, host_state=host_state,
+                serve_cfg=serve_cfg, gen_params=gen_params, alive=alive,
+                seed=seed, noise_fn=noise_fn, dev=dev)
 
-    if shard is None:
-        payload = _edge_encode_coresets(
-            to_device(windows, dev, torch.float32), k)
-    else:
-        _, lo, hi = shard.bounds(n)
-        payload = WirePayload(*(
-            _gather_nodes(f, shard, n) for f in _edge_encode_coresets(
-                _tile(windows, n, lo, hi, dev, torch.float32), k)))
-    n_tx = n if alive is None else int(alive.sum())        # frames sent
-    out = {
-        "wire_bytes": n_tx * wire_payload_nbytes(k, c),
-        "raw_bytes": n * raw_payload_bytes(t) * c,
-    }
-    if host_state is None:
-        noise = to_device(noise if noise is not None else _draw_recovery(
-            generator, n, c, t, dev), dev, torch.float32)
-        out["host_logits"] = recover_infer_batch(payload, host_params, noise,
-                                                 t)
+        with obs_trace.span("host.encode"):
+            if shard is None:
+                payload = _edge_encode_coresets(
+                    to_device(windows, dev, torch.float32), k)
+            else:
+                _, lo, hi = shard.bounds(n)
+                payload = WirePayload(*(
+                    _gather_nodes(f, shard, n) for f in _edge_encode_coresets(
+                        _tile(windows, n, lo, hi, dev, torch.float32), k)))
+            n_tx = n if alive is None else int(alive.sum())  # frames sent
+            out = {
+                "wire_bytes": n_tx * wire_payload_nbytes(k, c),
+                "raw_bytes": n * raw_payload_bytes(t) * c,
+            }
+        if host_state is None:
+            noise = to_device(noise if noise is not None else _draw_recovery(
+                generator, n, c, t, dev), dev, torch.float32)
+            out["host_logits"] = recover_infer_batch(payload, host_params,
+                                                     noise, t)
+            return out
+        if serve_cfg is None or gen_params is None:
+            raise ValueError("fleet_serve_step host_state mode needs "
+                             "serve_cfg and gen_params")
+        state, slot_out = serve_fleet_payloads(
+            host_state, payload,
+            torch.arange(n, dtype=torch.int32, device=dev), cfg=serve_cfg,
+            host_params=host_params, gen_params=gen_params,
+            seed=seed, noise_fn=noise_fn, mask=alive)
+        out["host_state"] = state
+        out["slot_output"] = slot_out
         return out
-    if serve_cfg is None or gen_params is None:
-        raise ValueError("fleet_serve_step host_state mode needs serve_cfg "
-                         "and gen_params")
-    state, slot_out = serve_fleet_payloads(
-        host_state, payload, torch.arange(n, dtype=torch.int32, device=dev),
-        cfg=serve_cfg, host_params=host_params, gen_params=gen_params,
-        seed=seed, noise_fn=noise_fn, mask=alive)
-    out["host_state"] = state
-    out["slot_output"] = slot_out
-    return out
 
 
 def _draw_recovery(generator, n: int, c: int, t: int, dev) -> dict:
@@ -982,19 +986,22 @@ def _fleet_serve_per_shard(windows, *, n, t, c, k, shard, host_params,
     mask = torch.arange(lo, hi, device=dev) < n
     if alive is not None:
         mask = mask & _tile(alive, n, lo, hi, dev)
-    payload = _edge_encode_coresets(
-        _tile(windows, n, lo, hi, dev, torch.float32), k)
+    with obs_trace.span("host.encode"):
+        payload = _edge_encode_coresets(
+            _tile(windows, n, lo, hi, dev, torch.float32), k)
+    with obs_trace.span("host.ingest"):
+        entries = cluster_entries(payload, cfg.m)
     stacked = to_device(host_state, dev)
     row, slot_out = host_serve_slot(
-        tree_map(lambda a: a[shard.index], stacked),
-        cluster_entries(payload, cfg.m),
+        tree_map(lambda a: a[shard.index], stacked), entries,
         torch.arange(lo, hi, dtype=torch.int32, device=dev), mask, cfg=cfg,
         host_params=host_params, gen_params=gen_params, seed=seed,
         noise_fn=noise_fn)
     i = shard.index
-    new_state = tree_map(
-        lambda a, r: torch.cat([a[:i], r[None].to(a.dtype), a[i + 1:]]),
-        stacked, row)
+    with obs_trace.span("host.finish"):
+        new_state = tree_map(
+            lambda a, r: torch.cat([a[:i], r[None].to(a.dtype), a[i + 1:]]),
+            stacked, row)
     qos = all_reduce_sum(torch.stack([
         row.served, row.deadline_misses,
         row.queue.drops_overflow]).to(torch.int64), shard).tolist()
@@ -1008,8 +1015,9 @@ def _fleet_serve_per_shard(windows, *, n, t, c, k, shard, host_params,
                         qos)),
     }
     if cfg.telemetry:
-        out["telemetry"] = metrics_psum(host_telemetry_spec(cfg), row.metrics,
-                                        shard.group)
+        with obs_trace.span("host.telemetry"):
+            out["telemetry"] = metrics_psum(host_telemetry_spec(cfg),
+                                            row.metrics, shard.group)
     return out
 
 

@@ -16,6 +16,12 @@ nothing loops over nodes:
    classifies every offloaded window;
 4. the fleet aggregates are reduced once, after the last slot.
 
+Every driver marks these steps with :mod:`repro_torch.obs.trace` spans:
+``fleet.step`` around the call, ``fleet.prepare``, one ``fleet.slot`` a
+slot holding ``fleet.noise``, then per node block ``fleet.corr``,
+``fleet.sensor``, ``fleet.intermittent`` (when on) and ``fleet.host``, then
+``fleet.carry``; and ``fleet.aggregates``.
+
 Randomness comes from one of three sources, and a run takes one:
 
 * ``generator=`` (the default, ``manual_seed(0)``): every slot draws its
@@ -503,39 +509,43 @@ def _slot_body(state, it, win, harv, nz, slot, cost_scale, host_idx, *,
     """The slot for one block of nodes: correlation, sensor step, the
     intermittent lane (when on), host.  ``cost_scale`` is the block's task
     lane scale (or None)."""
-    corr = signature_corr_op(win, signatures)                 # (B, L)
-    out = seeker_sensor_step_given_corr(
-        win, state, harv, corr, nz["u"], qp=qp, aac_table=aac_table,
-        costs=costs, k_max=k_max, m_samples=m_samples,
-        quant_bits=quant_bits, corr_threshold=corr_threshold,
-        strict_energy=strict, cost_scale=cost_scale)
+    with obs_trace.span("fleet.corr"):
+        corr = signature_corr_op(win, signatures)                 # (B, L)
+    with obs_trace.span("fleet.sensor"):
+        out = seeker_sensor_step_given_corr(
+            win, state, harv, corr, nz["u"], qp=qp, aac_table=aac_table,
+            costs=costs, k_max=k_max, m_samples=m_samples,
+            quant_bits=quant_bits, corr_threshold=corr_threshold,
+            strict_energy=strict, cost_scale=cost_scale)
     lane_trace, new_it = {}, None
     if intermittent is not None:
-        # the lane overrides the slots it engages, after the ladder
-        lane = intermittent_lane_step(
-            win, state, harv, out.decision, it, slot, qp=qp, qa=qa,
-            har_cfg=har_cfg, costs=costs, quant_bits=quant_bits,
-            cfg=intermittent, reserve_uj=reserve_uj, cost_scale=cost_scale)
-        eng = lane.engaged
-        # label -1 on engaged slots: their one-hot host logits are zeros,
-        # and the lane's result is scored through the it_* traces
-        out = out._replace(
-            decision=torch.where(eng, lane.decision, out.decision),
-            payload_bytes=torch.where(eng, lane.payload_bytes,
-                                      out.payload_bytes),
-            label_or_neg=torch.where(eng, -1, out.label_or_neg),
-            state=SeekerNodeState(
-                stored_uj=torch.where(eng, lane.stored_uj,
-                                      out.state.stored_uj),
-                predictor=out.state.predictor,
-                prev_label=torch.where(eng, lane.prev_label,
-                                       out.state.prev_label)))
-        new_it = lane.state
-        lane_trace = {"it_emit": lane.emit, "it_label": lane.emit_label,
-                      "it_conf": lane.emit_conf, "it_src": lane.emit_src,
-                      "it_stage": lane.emit_stage}
-    logits = _host_logits(out, nz, host_idx, host_params=host_params,
-                          gen_params=gen_params, t=win.shape[-2])
+        with obs_trace.span("fleet.intermittent"):
+            # the lane overrides the slots it engages, after the ladder
+            lane = intermittent_lane_step(
+                win, state, harv, out.decision, it, slot, qp=qp, qa=qa,
+                har_cfg=har_cfg, costs=costs, quant_bits=quant_bits,
+                cfg=intermittent, reserve_uj=reserve_uj, cost_scale=cost_scale)
+            eng = lane.engaged
+            # label -1 on engaged slots: their one-hot host logits are zeros,
+            # and the lane's result is scored through the it_* traces
+            out = out._replace(
+                decision=torch.where(eng, lane.decision, out.decision),
+                payload_bytes=torch.where(eng, lane.payload_bytes,
+                                          out.payload_bytes),
+                label_or_neg=torch.where(eng, -1, out.label_or_neg),
+                state=SeekerNodeState(
+                    stored_uj=torch.where(eng, lane.stored_uj,
+                                          out.state.stored_uj),
+                    predictor=out.state.predictor,
+                    prev_label=torch.where(eng, lane.prev_label,
+                                           out.state.prev_label)))
+            new_it = lane.state
+            lane_trace = {"it_emit": lane.emit, "it_label": lane.emit_label,
+                          "it_conf": lane.emit_conf, "it_src": lane.emit_src,
+                          "it_stage": lane.emit_stage}
+    with obs_trace.span("fleet.host"):
+        logits = _host_logits(out, nz, host_idx, host_params=host_params,
+                              gen_params=gen_params, t=win.shape[-2])
     return out.state, new_it, {"decisions": out.decision,
                                "payload_bytes": out.payload_bytes,
                                "k_trace": out.coreset_k, "logits": logits,
@@ -717,78 +727,90 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
     ``completed_by_task`` and ``deadline_miss_by_task`` (with labels
     ``correct_by_task`` and ``accuracy_by_task``).
     """
-    dev = resolve_device(device)
-    _check_sources(generator, noise, node_keys)
-    costs = costs or EnergyCosts()
-    harvest = to_device(harvest, dev, torch.float32)
-    windows = to_device(windows, dev, torch.float32)
-    n, s = harvest.shape
-    shared_stream = _check_windows(tuple(windows.shape), n, s, har_cfg)
-    t, c = windows.shape[-2:]
-    xs_w = (windows.contiguous() if shared_stream                # (S, T, C)
-            else windows.transpose(0, 1).contiguous())        # (S, N, T, C)
-    labels, per_node_labels = _resolve_labels(labels, s, n, shared_stream,
-                                              dev)
-    exo_alive = _resolve_alive(alive, n, s, dev)
-    if state0 is None:
-        state = fleet_node_init(n, predictor_window, initial_uj, dev)
-    else:
-        state = to_device(state0, dev)
-        if state.stored_uj.shape[0] != n:
-            raise ValueError(f"state0 is stacked for "
-                             f"{state.stored_uj.shape[0]} nodes, fleet has {n}")
-    _validate_intermittent_args(intermittent, intermittent_state0,
-                                aux_params, n)
-    tasks, task = _resolve_tasks(tasks, task, n, dev)
-    host_params = _resolve_task_host(task, host_params)
-    tel_spec = _resolve_telemetry(telemetry, intermittent, task)
-    active = _active_lanes(intermittent, task, brownout)
-    it = None
-    if intermittent is not None:
-        it = (intermittent_fleet_init(n, har_cfg, dev)
-              if intermittent_state0 is None
-              else to_device(intermittent_state0, dev))
-    keys0 = None
-    if noise is not None:
-        noise = _check_noise(noise, s, n, t, c,
-                             lambda v: to_device(v, dev, torch.float32))
+    n, s = tuple(_as_array(harvest).shape)
+    with obs_trace.span("fleet.step", {"nodes": n, "slots": s}):
+        with obs_trace.span("fleet.prepare"):
+            dev = resolve_device(device)
+            _check_sources(generator, noise, node_keys)
+            costs = costs or EnergyCosts()
+            harvest = to_device(harvest, dev, torch.float32)
+            windows = to_device(windows, dev, torch.float32)
+            shared_stream = _check_windows(tuple(windows.shape), n, s,
+                                           har_cfg)
+            t, c = windows.shape[-2:]
+            xs_w = (windows.contiguous() if shared_stream      # (S, T, C)
+                    else windows.transpose(0, 1).contiguous())  # (S, N, T, C)
+            labels, per_node_labels = _resolve_labels(labels, s, n,
+                                                      shared_stream, dev)
+            exo_alive = _resolve_alive(alive, n, s, dev)
+            if state0 is None:
+                state = fleet_node_init(n, predictor_window, initial_uj, dev)
+            else:
+                state = to_device(state0, dev)
+                if state.stored_uj.shape[0] != n:
+                    raise ValueError(f"state0 is stacked for "
+                                     f"{state.stored_uj.shape[0]} nodes, "
+                                     f"fleet has {n}")
+            _validate_intermittent_args(intermittent, intermittent_state0,
+                                        aux_params, n)
+            tasks, task = _resolve_tasks(tasks, task, n, dev)
+            host_params = _resolve_task_host(task, host_params)
+            tel_spec = _resolve_telemetry(telemetry, intermittent, task)
+            active = _active_lanes(intermittent, task, brownout)
+            it = None
+            if intermittent is not None:
+                it = (intermittent_fleet_init(n, har_cfg, dev)
+                      if intermittent_state0 is None
+                      else to_device(intermittent_state0, dev))
+            keys0 = None
+            if noise is not None:
+                noise = _check_noise(
+                    noise, s, n, t, c,
+                    lambda v: to_device(v, dev, torch.float32))
 
-        def slot_noise(si, keys):
-            return {k: v[si] for k, v in noise.items()}, None
-    elif node_keys is not None:
-        keys0 = _check_keys(node_keys, n,
-                            lambda v: to_device(v, dev, torch.int64))
+                def slot_noise(si, keys):
+                    return {k: v[si] for k, v in noise.items()}, None
+            elif node_keys is not None:
+                keys0 = _check_keys(node_keys, n,
+                                    lambda v: to_device(v, dev, torch.int64))
 
-        def slot_noise(si, keys):
-            return draw_slot_noise_keyed(keys, t, c)
-    else:
-        generator = _check_generator(generator, dev)
+                def slot_noise(si, keys):
+                    return draw_slot_noise_keyed(keys, t, c)
+            else:
+                generator = _check_generator(generator, dev)
 
-        def slot_noise(si, keys):
-            return draw_slot_noise(generator, n, t, c), None
-    carry = FleetCarry(
-        node=state, keys=keys0, intermittent=it,
-        # the run counts a delta from zero; telemetry_state0 is merged after
-        telemetry=None if tel_spec is None else metrics_init(tel_spec, dev),
-        brownout=_resolve_brownout0(brownout_state0, state, brownout, n))
-    params = _model_params(
-        signatures=signatures, qdnn_params=qdnn_params,
-        host_params=host_params, gen_params=gen_params, aac_table=aac_table,
-        costs=costs, quant_bits=quant_bits, k_max=k_max,
-        m_samples=m_samples, corr_threshold=corr_threshold, har_cfg=har_cfg,
-        brownout=brownout, intermittent=intermittent, aux_params=aux_params,
-        task=task, dev=dev)
-    traces, carry = _run_slots(
-        xs_w, harvest, exo_alive, carry, slot_noise, params=params,
-        tasks=tasks, task=task, brownout=brownout, intermittent=intermittent,
-        tel_spec=tel_spec, active=active, slot0=slot0, node_block=node_block)
-    aggs = _fleet_aggregates(traces, exo_alive.T, labels, per_node_labels,
-                             intermittent, slot0, tasks, task)
-    return _fleet_result(traces, aggs, carry, active=active,
-                         intermittent=intermittent, tel_spec=tel_spec,
-                         telemetry_state0=telemetry_state0,
-                         scored=labels is not None, tasks=tasks, task=task,
-                         t=t, c=c)
+                def slot_noise(si, keys):
+                    return draw_slot_noise(generator, n, t, c), None
+            carry = FleetCarry(
+                node=state, keys=keys0, intermittent=it,
+                # the run counts a delta from zero; telemetry_state0 is
+                # merged after
+                telemetry=(None if tel_spec is None
+                           else metrics_init(tel_spec, dev)),
+                brownout=_resolve_brownout0(brownout_state0, state, brownout,
+                                            n))
+            params = _model_params(
+                signatures=signatures, qdnn_params=qdnn_params,
+                host_params=host_params, gen_params=gen_params,
+                aac_table=aac_table, costs=costs, quant_bits=quant_bits,
+                k_max=k_max, m_samples=m_samples,
+                corr_threshold=corr_threshold, har_cfg=har_cfg,
+                brownout=brownout, intermittent=intermittent,
+                aux_params=aux_params, task=task, dev=dev)
+        traces, carry = _run_slots(
+            xs_w, harvest, exo_alive, carry, slot_noise, params=params,
+            tasks=tasks, task=task, brownout=brownout,
+            intermittent=intermittent, tel_spec=tel_spec, active=active,
+            slot0=slot0, node_block=node_block)
+        with obs_trace.span("fleet.aggregates"):
+            aggs = _fleet_aggregates(traces, exo_alive.T, labels,
+                                     per_node_labels, intermittent, slot0,
+                                     tasks, task)
+            return _fleet_result(traces, aggs, carry, active=active,
+                                 intermittent=intermittent, tel_spec=tel_spec,
+                                 telemetry_state0=telemetry_state0,
+                                 scored=labels is not None, tasks=tasks,
+                                 task=task, t=t, c=c)
 
 
 def _check_windows(shape: tuple, n: int, s: int, har_cfg: HARConfig) -> bool:
@@ -876,76 +898,95 @@ def _run_slots(xs_w, harvest, exo_alive, carry: FleetCarry, slot_noise, *,
 
     per_slot = []
     for si in range(s):
-        win_t = (xs_w[si].expand(n, t, c).contiguous() if shared_stream
-                 else xs_w[si])
-        nz, next_keys = slot_noise(si, carry.keys)
-        harv_t = harvest[:, si]
-        alive_t = exo_alive[:, si]
-        browned = carry.brownout
-        # a node runs when its trace says so and its supercap allows
-        alive_eff = alive_t & ~browned if brownout is not None else alive_t
-        parts = [_slot_body(
-            _tree_map(lambda x: x[sl], carry.node),
-            _tree_map(lambda x: x[sl], carry.intermittent), win_t[sl],
-            harv_t[sl], {k: v[sl] for k, v in nz.items()}, slot0 + si,
-            None if scale is None else scale[sl], idx, **params)
-            for sl, idx in zip(blocks, host_idx)]
-        new = carry._replace(
-            node=_tree_map(lambda *xs: torch.cat(xs), *[p[0] for p in parts]),
-            keys=next_keys,
-            intermittent=_tree_map(lambda *xs: torch.cat(xs),
-                                   *[p[1] for p in parts]))
-        trace = {k: torch.cat([p[2][k] for p in parts]) for k in parts[0][2]}
-
-        # every 'keep' lane freezes through dead and browned-out slots
-        def keep(new_x, old_x):
-            a = alive_eff.reshape((n,) + (1,) * (new_x.ndim - 1))
-            return torch.where(a, new_x, old_x)
-
-        new = new._replace(**{f: _tree_map(keep, getattr(new, f),
-                                           getattr(carry, f))
-                              for f in keep_fields})
-        node = new.node
-        next_browned = browned
-        if brownout is not None:
-            # the brown-out lane's trickle: a browned-out (yet exogenously
-            # present) node's supercap still integrates its income
-            old = carry.node.stored_uj
-            trickle = supercap_step(old, harv_t, 0.0)
-            stored = torch.where(alive_eff, node.stored_uj,
-                                 torch.where(alive_t, trickle, old))
-            node = node._replace(stored_uj=stored)
-            # hysteresis on the post-slot charge; the flag freezes through
-            # exogenously dead slots
-            next_browned = torch.where(
-                alive_t, torch.where(browned, stored < brownout.restart_uj,
-                                     stored < brownout.off_uj), browned)
-        out_t = {
-            "decisions": torch.where(alive_eff, trace["decisions"], DEFER),
-            "payload_bytes": torch.where(alive_eff, trace["payload_bytes"],
-                                         0.0),
-            "stored_uj": node.stored_uj,
-            "k_trace": torch.where(alive_eff, trace["k_trace"], 0),
-            "logits": torch.where(alive_eff[:, None], trace["logits"], 0.0),
-            "alive": alive_eff,
-            "brownout": browned,
-            "bo_event": next_browned & ~browned,
-        }
-        if intermittent is not None:
-            # a node that did not run emitted nothing; the other it_* fields
-            # mean something only where it_emit > 0
-            out_t.update({k: trace[k] for k in ("it_label", "it_conf",
-                                                 "it_src", "it_stage")})
-            out_t["it_emit"] = torch.where(alive_eff, trace["it_emit"], 0)
-        # telemetry: a fleet-level accumulator, never frozen per node
-        carry = new._replace(
-            node=node, brownout=next_browned,
-            telemetry=None if tel_spec is None else _update_fleet_lanes(
-                tel_spec, carry.telemetry, out_t, alive_t, active, tasks))
-        per_slot.append(out_t)
-    traces = {k: torch.stack([p[k] for p in per_slot]) for k in per_slot[0]}
-    traces["preds"] = torch.argmax(traces["logits"], dim=-1)
+        with obs_trace.span("fleet.slot", {"slot": slot0 + si}):
+            with obs_trace.span("fleet.noise"):
+                win_t = (xs_w[si].expand(n, t, c).contiguous()
+                         if shared_stream else xs_w[si])
+                nz, next_keys = slot_noise(si, carry.keys)
+            harv_t = harvest[:, si]
+            parts = [_slot_body(
+                _tree_map(lambda x: x[sl], carry.node),
+                _tree_map(lambda x: x[sl], carry.intermittent), win_t[sl],
+                harv_t[sl], {k: v[sl] for k, v in nz.items()}, slot0 + si,
+                None if scale is None else scale[sl], idx, **params)
+                for sl, idx in zip(blocks, host_idx)]
+            with obs_trace.span("fleet.carry"):
+                carry, out_t = _slot_carry(
+                    carry, parts, next_keys, harv_t, exo_alive[:, si],
+                    brownout=brownout, intermittent=intermittent,
+                    tel_spec=tel_spec, active=active, tasks=tasks,
+                    keep_fields=keep_fields)
+            per_slot.append(out_t)
+    with obs_trace.span("fleet.aggregates"):
+        traces = {k: torch.stack([p[k] for p in per_slot])
+                  for k in per_slot[0]}
+        traces["preds"] = torch.argmax(traces["logits"], dim=-1)
     return traces, carry
+
+
+def _slot_carry(carry: FleetCarry, parts: list, next_keys, harv_t, alive_t,
+                *, brownout, intermittent, tel_spec, active: frozenset,
+                tasks, keep_fields: list):
+    """The carry after one slot from its node blocks' ``parts``: the blocks
+    joined, the 'keep' lanes frozen where a node did not run, the
+    brown-out trickle and hysteresis, the slot's emitted traces ``out_t``
+    and the telemetry lanes.  Returns ``(carry, out_t)``."""
+    n = alive_t.shape[0]
+    browned = carry.brownout
+    # a node runs when its trace says so and its supercap allows
+    alive_eff = alive_t & ~browned if brownout is not None else alive_t
+    new = carry._replace(
+        node=_tree_map(lambda *xs: torch.cat(xs), *[p[0] for p in parts]),
+        keys=next_keys,
+        intermittent=_tree_map(lambda *xs: torch.cat(xs),
+                               *[p[1] for p in parts]))
+    trace = {k: torch.cat([p[2][k] for p in parts]) for k in parts[0][2]}
+
+    # every 'keep' lane freezes through dead and browned-out slots
+    def keep(new_x, old_x):
+        a = alive_eff.reshape((n,) + (1,) * (new_x.ndim - 1))
+        return torch.where(a, new_x, old_x)
+
+    new = new._replace(**{f: _tree_map(keep, getattr(new, f),
+                                       getattr(carry, f))
+                          for f in keep_fields})
+    node = new.node
+    next_browned = browned
+    if brownout is not None:
+        # the brown-out lane's trickle: a browned-out (yet exogenously
+        # present) node's supercap still integrates its income
+        old = carry.node.stored_uj
+        trickle = supercap_step(old, harv_t, 0.0)
+        stored = torch.where(alive_eff, node.stored_uj,
+                             torch.where(alive_t, trickle, old))
+        node = node._replace(stored_uj=stored)
+        # hysteresis on the post-slot charge; the flag freezes through
+        # exogenously dead slots
+        next_browned = torch.where(
+            alive_t, torch.where(browned, stored < brownout.restart_uj,
+                                 stored < brownout.off_uj), browned)
+    out_t = {
+        "decisions": torch.where(alive_eff, trace["decisions"], DEFER),
+        "payload_bytes": torch.where(alive_eff, trace["payload_bytes"], 0.0),
+        "stored_uj": node.stored_uj,
+        "k_trace": torch.where(alive_eff, trace["k_trace"], 0),
+        "logits": torch.where(alive_eff[:, None], trace["logits"], 0.0),
+        "alive": alive_eff,
+        "brownout": browned,
+        "bo_event": next_browned & ~browned,
+    }
+    if intermittent is not None:
+        # a node that did not run emitted nothing; the other it_* fields
+        # mean something only where it_emit > 0
+        out_t.update({k: trace[k] for k in ("it_label", "it_conf",
+                                             "it_src", "it_stage")})
+        out_t["it_emit"] = torch.where(alive_eff, trace["it_emit"], 0)
+    # telemetry: a fleet-level accumulator, never frozen per node
+    carry = new._replace(
+        node=node, brownout=next_browned,
+        telemetry=None if tel_spec is None else _update_fleet_lanes(
+            tel_spec, carry.telemetry, out_t, alive_t, active, tasks))
+    return carry, out_t
 
 
 def _fleet_result(traces: dict, aggs: dict, carry: FleetCarry, *,
@@ -1106,124 +1147,137 @@ def seeker_fleet_simulate_sharded(
     ``padded_nodes`` (the inert nodes added) and ``node_axes`` (the mesh
     dims the node axis split over).
     """
-    dev = resolve_device(device)
-    _check_sources(generator, noise, node_keys)
-    shard = node_shard(mesh if mesh is not None else _default_mesh(dev))
-    costs = costs or EnergyCosts()
     n, s = tuple(_as_array(harvest).shape)
-    win = _as_array(windows)
-    shared_stream = _check_windows(tuple(win.shape), n, s, har_cfg)
-    t, c = win.shape[-2:]
-    pad, lo, hi = shard.bounds(n)
-    rows = functools.partial(_tile, n=n, lo=lo, hi=hi, dev=dev)
-    mask = torch.arange(lo, hi, device=dev) < n
-    if shared_stream:
-        xs_w = to_device(win, dev, torch.float32).contiguous()
-    else:
-        xs_w = rows(win, dtype=torch.float32).transpose(0, 1).contiguous()
-    harv = rows(harvest, dtype=torch.float32)
-    alive_g = _check_alive(alive, n, s)
-    # padding nodes are permanently dead: their ladder never runs
-    exo_alive = (mask[:, None].expand(hi - lo, s).clone() if alive_g is None
-                 else rows(alive_g, dtype=torch.bool))
-    labels_g, per_node_labels = _labels_layout(labels, s, n, shared_stream)
-    if labels_g is None:
-        labels_t = None
-    elif per_node_labels:
-        labels_t = rows(labels_g, dtype=torch.int64, dim=1)
-    else:
-        labels_t = to_device(labels_g, dev, torch.int64)
-    filler = fleet_node_init(max(hi - max(lo, n), 0), predictor_window,
-                             initial_uj, dev)
-    if state0 is None:
-        state = fleet_node_init(hi - lo, predictor_window, initial_uj, dev)
-    else:
-        lead = _as_array(state0.stored_uj).shape[0]
-        if lead != n:
-            raise ValueError(f"state0 is stacked for {lead} nodes, fleet "
-                             f"has {n}")
-        state = rows(state0, fill=filler)
-    if brownout_state0 is not None:
-        b0 = _as_array(brownout_state0)
-        if tuple(b0.shape) != (n,):
-            raise ValueError(f"brownout_state0 must be (N,)=({n},) bool, "
-                             f"got {tuple(b0.shape)}")
-        browned0 = rows(b0, dtype=torch.bool)
-    else:
-        # boot-time hysteresis on the real nodes; padding held awake
-        browned0 = _resolve_brownout0(None, state, brownout,
-                                      hi - lo) & mask
-    _validate_intermittent_args(intermittent, intermittent_state0,
-                                aux_params, n)
-    tasks, task = _resolve_tasks(tasks, task, n, dev)
-    host_params = _resolve_task_host(task, host_params)
-    tasks_t = None if tasks is None else rows(tasks)   # padding: task 0
-    tel_spec = _resolve_telemetry(telemetry, intermittent, task)
-    active = _active_lanes(intermittent, task, brownout)
-    it = None
-    if intermittent is not None:
-        it_fill = intermittent_fleet_init(filler.stored_uj.shape[0], har_cfg,
-                                          dev)
-        it = (intermittent_fleet_init(hi - lo, har_cfg, dev)
-              if intermittent_state0 is None
-              else rows(intermittent_state0, fill=it_fill))
-    keys0 = None
-    if noise is not None:
-        tile_noise = _check_noise(noise, s, n, t, c, functools.partial(
-            rows, dtype=torch.float32, dim=1))
+    with obs_trace.span("fleet.step", {"nodes": n, "slots": s}):
+        with obs_trace.span("fleet.prepare"):
+            dev = resolve_device(device)
+            _check_sources(generator, noise, node_keys)
+            shard = node_shard(mesh if mesh is not None
+                               else _default_mesh(dev))
+            costs = costs or EnergyCosts()
+            win = _as_array(windows)
+            shared_stream = _check_windows(tuple(win.shape), n, s, har_cfg)
+            t, c = win.shape[-2:]
+            pad, lo, hi = shard.bounds(n)
+            rows = functools.partial(_tile, n=n, lo=lo, hi=hi, dev=dev)
+            mask = torch.arange(lo, hi, device=dev) < n
+            if shared_stream:
+                xs_w = to_device(win, dev, torch.float32).contiguous()
+            else:
+                xs_w = rows(win, dtype=torch.float32).transpose(
+                    0, 1).contiguous()
+            harv = rows(harvest, dtype=torch.float32)
+            alive_g = _check_alive(alive, n, s)
+            # padding nodes are permanently dead: their ladder never runs
+            exo_alive = (mask[:, None].expand(hi - lo, s).clone()
+                         if alive_g is None
+                         else rows(alive_g, dtype=torch.bool))
+            labels_g, per_node_labels = _labels_layout(labels, s, n,
+                                                       shared_stream)
+            if labels_g is None:
+                labels_t = None
+            elif per_node_labels:
+                labels_t = rows(labels_g, dtype=torch.int64, dim=1)
+            else:
+                labels_t = to_device(labels_g, dev, torch.int64)
+            filler = fleet_node_init(max(hi - max(lo, n), 0),
+                                     predictor_window, initial_uj, dev)
+            if state0 is None:
+                state = fleet_node_init(hi - lo, predictor_window,
+                                        initial_uj, dev)
+            else:
+                lead = _as_array(state0.stored_uj).shape[0]
+                if lead != n:
+                    raise ValueError(f"state0 is stacked for {lead} nodes, "
+                                     f"fleet has {n}")
+                state = rows(state0, fill=filler)
+            if brownout_state0 is not None:
+                b0 = _as_array(brownout_state0)
+                if tuple(b0.shape) != (n,):
+                    raise ValueError(f"brownout_state0 must be (N,)=({n},) "
+                                     f"bool, got {tuple(b0.shape)}")
+                browned0 = rows(b0, dtype=torch.bool)
+            else:
+                # boot-time hysteresis on the real nodes; padding held awake
+                browned0 = _resolve_brownout0(None, state, brownout,
+                                              hi - lo) & mask
+            _validate_intermittent_args(intermittent, intermittent_state0,
+                                        aux_params, n)
+            tasks, task = _resolve_tasks(tasks, task, n, dev)
+            host_params = _resolve_task_host(task, host_params)
+            # padding: task 0
+            tasks_t = None if tasks is None else rows(tasks)
+            tel_spec = _resolve_telemetry(telemetry, intermittent, task)
+            active = _active_lanes(intermittent, task, brownout)
+            it = None
+            if intermittent is not None:
+                it_fill = intermittent_fleet_init(filler.stored_uj.shape[0],
+                                                  har_cfg, dev)
+                it = (intermittent_fleet_init(hi - lo, har_cfg, dev)
+                      if intermittent_state0 is None
+                      else rows(intermittent_state0, fill=it_fill))
+            keys0 = None
+            if noise is not None:
+                tile_noise = _check_noise(
+                    noise, s, n, t, c,
+                    functools.partial(rows, dtype=torch.float32, dim=1))
 
-        def slot_noise(si, keys):
-            return {k: v[si] for k, v in tile_noise.items()}, None
-    elif node_keys is not None:
-        # this tile's keys; padding nodes get inert zero keys
-        keys0 = _check_keys(node_keys, n,
-                            functools.partial(rows, dtype=torch.int64))
+                def slot_noise(si, keys):
+                    return {k: v[si] for k, v in tile_noise.items()}, None
+            elif node_keys is not None:
+                # this tile's keys; padding nodes get inert zero keys
+                keys0 = _check_keys(
+                    node_keys, n, functools.partial(rows, dtype=torch.int64))
 
-        def slot_noise(si, keys):
-            return draw_slot_noise_keyed(keys, t, c)
-    else:
-        generator = _check_generator(generator, dev)
+                def slot_noise(si, keys):
+                    return draw_slot_noise_keyed(keys, t, c)
+            else:
+                generator = _check_generator(generator, dev)
 
-        def slot_noise(si, keys):
-            # the whole fleet's batch, from the same stream on every rank
-            return {k: rows(v) for k, v in
-                    draw_slot_noise(generator, n, t, c).items()}, None
-    carry = FleetCarry(
-        node=state, keys=keys0, intermittent=it, brownout=browned0,
-        telemetry=None if tel_spec is None else metrics_init(tel_spec, dev))
-    params = _model_params(
-        signatures=signatures, qdnn_params=qdnn_params,
-        host_params=host_params, gen_params=gen_params, aac_table=aac_table,
-        costs=costs, quant_bits=quant_bits, k_max=k_max,
-        m_samples=m_samples, corr_threshold=corr_threshold, har_cfg=har_cfg,
-        brownout=brownout, intermittent=intermittent, aux_params=aux_params,
-        task=task, dev=dev)
-    traces, carry = _run_slots(
-        xs_w, harv, exo_alive, carry, slot_noise, params=params,
-        tasks=tasks_t, task=task, brownout=brownout,
-        intermittent=intermittent, tel_spec=tel_spec, active=active,
-        slot0=slot0, node_block=node_block)
-    aggs = _reduce_aggregates(_fleet_aggregates(
-        traces, exo_alive.T, labels_t, per_node_labels, intermittent, slot0,
-        tasks_t, task, mask=mask), shard)
+                def slot_noise(si, keys):
+                    # the whole fleet's batch, from the same stream on
+                    # every rank
+                    return {k: rows(v) for k, v in
+                            draw_slot_noise(generator, n, t, c).items()}, None
+            carry = FleetCarry(
+                node=state, keys=keys0, intermittent=it, brownout=browned0,
+                telemetry=(None if tel_spec is None
+                           else metrics_init(tel_spec, dev)))
+            params = _model_params(
+                signatures=signatures, qdnn_params=qdnn_params,
+                host_params=host_params, gen_params=gen_params,
+                aac_table=aac_table, costs=costs, quant_bits=quant_bits,
+                k_max=k_max, m_samples=m_samples,
+                corr_threshold=corr_threshold, har_cfg=har_cfg,
+                brownout=brownout, intermittent=intermittent,
+                aux_params=aux_params, task=task, dev=dev)
+        traces, carry = _run_slots(
+            xs_w, harv, exo_alive, carry, slot_noise, params=params,
+            tasks=tasks_t, task=task, brownout=brownout,
+            intermittent=intermittent, tel_spec=tel_spec, active=active,
+            slot0=slot0, node_block=node_block)
+        with obs_trace.span("fleet.aggregates"):
+            aggs = _reduce_aggregates(_fleet_aggregates(
+                traces, exo_alive.T, labels_t, per_node_labels, intermittent,
+                slot0, tasks_t, task, mask=mask), shard)
 
-    gathered = {k: _gather_nodes(traces[k], shard, n, dim=1)
-                for k in fleet_trace_keys(active) if k != "preds"}
-    gathered["preds"] = torch.argmax(gathered["logits"], dim=-1)
-    carry = FleetCarry(
-        node=_gather_nodes(carry.node, shard, n),
-        keys=_gather_nodes(carry.keys, shard, n),
-        brownout=_gather_nodes(carry.brownout, shard, n),
-        intermittent=_gather_nodes(carry.intermittent, shard, n),
-        telemetry=None if tel_spec is None else metrics_psum(
-            tel_spec, carry.telemetry, shard.group))
-    out = _fleet_result(gathered, aggs, carry, active=active,
-                        intermittent=intermittent, tel_spec=tel_spec,
-                        telemetry_state0=telemetry_state0,
-                        scored=labels_t is not None, tasks=tasks, task=task,
-                        t=t, c=c)
-    out.update(padded_nodes=pad, node_axes=shard.axes)
-    return out
+            gathered = {k: _gather_nodes(traces[k], shard, n, dim=1)
+                        for k in fleet_trace_keys(active) if k != "preds"}
+            gathered["preds"] = torch.argmax(gathered["logits"], dim=-1)
+            carry = FleetCarry(
+                node=_gather_nodes(carry.node, shard, n),
+                keys=_gather_nodes(carry.keys, shard, n),
+                brownout=_gather_nodes(carry.brownout, shard, n),
+                intermittent=_gather_nodes(carry.intermittent, shard, n),
+                telemetry=None if tel_spec is None else metrics_psum(
+                    tel_spec, carry.telemetry, shard.group))
+            out = _fleet_result(gathered, aggs, carry, active=active,
+                                intermittent=intermittent, tel_spec=tel_spec,
+                                telemetry_state0=telemetry_state0,
+                                scored=labels_t is not None, tasks=tasks,
+                                task=task, t=t, c=c)
+            out.update(padded_nodes=pad, node_axes=shard.axes)
+            return out
 
 
 def seeker_fleet_simulate_streamed(
@@ -1326,9 +1380,7 @@ def seeker_fleet_simulate_streamed(
             seg["labels"] = labels_full[start:stop]
         if alive_full is not None:
             seg["alive"] = alive_full[:, start:stop]
-        with obs_trace.span("fleet.segment", cat="fleet",
-                            args={"start": start, "stop": stop},
-                            flush=lambda: res["decisions"]):
+        with obs_trace.span("fleet.segment", {"start": start, "stop": stop}):
             res = engine(window_fn(start, stop), harvest[:, start:stop],
                          **seg)
         state, browned = res["final_state"], res["final_brownout"]

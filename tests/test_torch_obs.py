@@ -159,9 +159,9 @@ def test_specs_refuse_duplicates_and_wrong_kinds():
 
 
 def test_span_tracer_writes_a_chrome_trace(tmp_path):
-    """The streamed driver opens one ``fleet.segment`` span per segment; the
-    export is JSON that ``json.load`` reads back, and a disabled tracer
-    records nothing."""
+    """The streamed driver opens one ``fleet.segment`` span per segment,
+    each a child of the caller's span; the export is JSON that
+    ``json.load`` reads back, and a disabled tracer records nothing."""
     from repro_torch.configs.seeker_har import HAR
     from repro_torch.core.recovery import init_generator
     from repro_torch.data.sensors import class_signatures, har_stream
@@ -178,20 +178,29 @@ def test_span_tracer_writes_a_chrome_trace(tmp_path):
     assert trace.events() == []
     trace.enable()
     try:
-        with trace.span("outer", args={"k": 1}, flush=lambda: [harvest]):
+        with trace.span("outer", {"k": 1}):
             res = tfleet.seeker_fleet_simulate_streamed(wins, harvest,
                                                         chunk=2, **kw)
-        trace.instant("mark")
     finally:
         trace.enable(False)
     path = tmp_path / "trace.json"
-    assert trace.export_chrome_trace(str(path)) == 5
+    n_events = trace.export_chrome_trace(str(path))
     doc = json.load(open(path))
-    segs = [e for e in doc["traceEvents"] if e["name"] == "fleet.segment"]
-    assert [e["args"] for e in segs] == [{"start": 0, "stop": 2},
-                                         {"start": 2, "stop": 4},
-                                         {"start": 4, "stop": 5}]
-    assert all(e["ph"] == "X" and e["dur"] >= 0 for e in segs)
+    assert n_events == len(doc["traceEvents"]) == len(trace.events())
+    # the outer span and the segments; the engine's own spans inside them
+    mine = [e for e in doc["traceEvents"]
+            if e["name"] in ("outer", "fleet.segment")]
+    assert len(mine) == 4 and mine[-1]["name"] == "outer"
+    top = mine[-1]["args"]
+    assert top["k"] == 1 and top["parent"] is None
+    segs = mine[:3]
+    assert [e["args"] for e in segs] == [
+        {"start": a, "stop": b, "id": e["args"]["id"], "parent": top["id"]}
+        for e, (a, b) in zip(segs, [(0, 2), (2, 4), (4, 5)])]
+    assert all(e["ph"] == "X" and e["dur"] >= 0 for e in mine)
+    steps = [e for e in doc["traceEvents"] if e["name"] == "fleet.step"]
+    assert [e["args"]["parent"] for e in steps] == [
+        e["args"]["id"] for e in segs]
     assert res["n_chunks"] == 3
     trace.clear()
     assert trace.events() == []
