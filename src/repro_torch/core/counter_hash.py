@@ -38,7 +38,8 @@ def fmix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-@functools.lru_cache(maxsize=64)
+# never evicted: a captured serve graph (host/server.py) reads it
+@functools.lru_cache(maxsize=None)
 def counters(n: int, device: torch.device) -> torch.Tensor:
     """(n,) the element counters' golden-ratio spread, made once per size."""
     e = torch.arange(1, n + 1, dtype=torch.int64, device=device)

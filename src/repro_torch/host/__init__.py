@@ -21,5 +21,5 @@ from .server import (  # noqa: F401
     host_ensemble, host_payload_example, host_serve_slot, host_serve_trace,
     host_server_init, host_server_init_stacked, host_server_stats,
     host_telemetry_spec, recover_infer_batch, sampling_entries,
-    serve_fleet_payloads, serve_trace_count,
+    serve_fleet_payloads, serve_graph_counts, serve_trace_count,
 )

@@ -65,7 +65,8 @@ def _leaf_words(x: torch.Tensor, batch: int) -> torch.Tensor:
     return x.reshape(batch, -1).to(torch.int32)
 
 
-@functools.lru_cache(maxsize=64)
+# never evicted: a captured serve graph (server.py) reads it
+@functools.lru_cache(maxsize=None)
 def _multipliers(width: int, device: torch.device) -> torch.Tensor:
     """(2, W) the per-position multiplier streams of the two mixes: an
     avalanched function of (position, seed), odd; made once per width."""

@@ -35,8 +35,11 @@ NO_DEADLINE = 2 ** 31 - 1
 
 
 def tree_map(fn, *trees):
-    """``fn`` over the leaves of NamedTuples or dicts of tensors."""
+    """``fn`` over the leaves of NamedTuples or dicts of tensors; a None
+    (an absent part, such as a state without telemetry lanes) stays None."""
     t0 = trees[0]
+    if t0 is None:
+        return None
     if isinstance(t0, tuple) and hasattr(t0, "_fields"):
         return type(t0)(*(tree_map(fn, *xs) for xs in zip(*trees)))
     if isinstance(t0, dict):

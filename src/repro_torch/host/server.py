@@ -8,10 +8,11 @@ EDF microbatches; each batch is looked up in the recovery cache, recovered
 (cluster-ball resynthesis or the generator, by entry kind) and run through
 the full-precision HAR DNN; per-node results accumulate into a mean-logit
 ensemble and a majority-vote histogram.  Each phase is a
-:mod:`repro_torch.obs.trace` span: ``host.ingest``, one ``host.batch`` a
-microbatch holding ``host.pop``, ``host.cache``, ``host.recover``,
-``host.dnn`` and ``host.ensemble``, ``host.telemetry`` wherever the lanes
-move, and ``host.finish``.
+:mod:`repro_torch.obs.trace` span: one ``host.batch`` a microbatch (the
+first also ingests, the last also finishes the slot) holding
+``host.ingest``, ``host.pop``, ``host.cache``, ``host.recover`` (the
+recovery noise), ``host.dnn``, ``host.ensemble``, ``host.telemetry``
+wherever the lanes move, and ``host.finish``.
 
 What differs from the reference, and why:
 
@@ -43,9 +44,35 @@ What differs from the reference, and why:
 * **The carry** :class:`HostServerState` chains: calling
   :func:`host_serve_slot` slot by slot equals one :func:`host_serve_trace`
   of the same slots, bit for bit on the CPU.
+* **On a CUDA device the slot is replayed as CUDA graphs.** The slot is a
+  list of segments split at each call of a caller's ``noise_fn``, which
+  runs eagerly between them, once a microbatch, on a ``sigs`` tensor it
+  owns: segment 0 ingests and pops and looks up microbatch 0, segment
+  ``i`` answers microbatch ``i - 1`` and opens microbatch ``i``, the last
+  closes the slot (``batches_per_slot + 1`` graphs).  With
+  ``noise_fn=None`` the default noise is tensor work, and the slot is one
+  segment.  The first call of a key runs the segments eagerly on a side
+  stream, then captures them; the key is (configuration, entry point,
+  device, ``seed`` or a caller's ``noise_fn``, the inputs' shapes and
+  dtypes, the address, shape, dtype and strides of every ``host_params``
+  and ``gen_params`` tensor, the TF32 switches): new weight tensors mean
+  a new capture, and an in-place update of the same tensors is read by
+  the replay.  Eight keys are kept, each with its private memory pool.
+  The inputs are copied into the graphs' buffers and the results handed
+  out as clones, so every state and output the caller holds stays its
+  own.  One driver (:func:`_drive`) runs the segments on every path, so
+  eager runs and replays record the same ``host.batch`` and
+  ``host.recover`` spans; the spans inside a segment record only when it
+  runs eagerly, and a replay records ``host.ingest`` around its input
+  copies and ``host.finish`` around its clones instead.
+  :func:`serve_graph_counts` counts captures, replays and eagerly run
+  segments; each capture is also a ``compile_event("host.serve_graph",
+  (cfg, tag))``.  Elsewhere, and inside a capture of the caller's, the
+  same segments run eagerly in order.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 from typing import Any, Callable, NamedTuple
@@ -71,7 +98,7 @@ from .cache import (RecoveryCache, batch_signatures, cache_init,
                     cache_insert_batch, cache_lookup_batch, cache_stats)
 from .queue import (PayloadQueue, push_lane, queue_init, queue_occupancy,
                     queue_wait_slots, tree_map)
-from .scheduler import batch_wait_slots, edf_pop_batch
+from .scheduler import MicroBatch, batch_wait_slots, edf_pop_batch
 
 __all__ = ["HostServeConfig", "HostPayload", "HostServerState", "SlotOutput",
            "CLUSTER_KIND", "SAMPLING_KIND", "host_payload_example",
@@ -79,7 +106,8 @@ __all__ = ["HostServeConfig", "HostPayload", "HostServerState", "SlotOutput",
            "host_server_init_stacked", "host_serve_slot",
            "host_serve_trace", "host_telemetry_spec", "serve_fleet_payloads",
            "recover_infer_batch", "host_server_stats", "host_ensemble",
-           "serve_trace_count", "counter_noise", "LATENT"]
+           "serve_trace_count", "serve_graph_counts", "counter_noise",
+           "LATENT"]
 
 CLUSTER_KIND = 0    # D3 payload: quantized cluster coreset
 SAMPLING_KIND = 1   # D4 payload: quantized importance samples + moments
@@ -309,8 +337,7 @@ def host_server_init_stacked(cfg: HostServeConfig, n_hosts: int,
     def stack(a):
         return a[None].expand((n_hosts,) + tuple(a.shape)).clone()
 
-    return HostServerState(*(tree_map(stack, f) if f is not None else None
-                             for f in one))
+    return tree_map(stack, one)
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +424,7 @@ def _check_lane_width(cfg: HostServeConfig, width: int) -> None:
 # ---------------------------------------------------------------------------
 
 _SERVE_COMPONENT = "host.serve"
+_GRAPH_COMPONENT = "host.serve_graph"
 
 
 class _SlotConsts(NamedTuple):
@@ -404,7 +432,8 @@ class _SlotConsts(NamedTuple):
     classes: torch.Tensor       # (n_classes,) int64
 
 
-@functools.lru_cache(maxsize=64)
+# never evicted: a captured serve graph reads these tensors while it lives
+@functools.lru_cache(maxsize=None)
 def _slot_consts(cfg: HostServeConfig, tag: str, width: int,
                  device: torch.device) -> _SlotConsts:
     """The per-shape constants of a serve slot, built once per
@@ -443,17 +472,37 @@ def _host_dnn(cfg: HostServeConfig, host_params: dict, wins: torch.Tensor,
     return per_task[tid, consts.rows]
 
 
-def _slot_body(cfg: HostServeConfig, consts: _SlotConsts,
-               state: HostServerState, entries: HostPayload,
-               node_ids: torch.Tensor, mask: torch.Tensor, host_params: dict,
-               gen_params: GeneratorParams, noise_fn: Callable
-               ) -> tuple[HostServerState, SlotOutput]:
-    """One serve slot: ingest the stamped arrivals, then run
-    ``cfg.batches_per_slot`` EDF microbatches through cache, recovery and
-    DNN."""
-    tel = host_telemetry_spec(cfg) if cfg.telemetry else None
+class _Pending(NamedTuple):
+    """A popped microbatch between its cache lookup and its recovery."""
+
+    batch: MicroBatch
+    missed: torch.Tensor     # () int32 — expired by this pop
+    sigs: torch.Tensor       # (B, 2) int64 — what the recovery noise keys
+    hit: torch.Tensor        # (B,) bool
+    cached: torch.Tensor     # (B, L) float32 — the cache's logits
+
+
+class _Carry(NamedTuple):
+    """The serve slot between two of its segments."""
+
+    queue: PayloadQueue
+    cache: RecoveryCache
+    now: torch.Tensor
+    served: torch.Tensor
+    missed: torch.Tensor
+    ens_l: torch.Tensor
+    ens_v: torch.Tensor
+    metrics: Any
+    outs: tuple              # a SlotOutput per answered microbatch
+    pending: _Pending | None
+
+
+def _ingest(cfg: HostServeConfig, state: HostServerState,
+            entries: HostPayload, node_ids: torch.Tensor,
+            mask: torch.Tensor) -> _Carry:
+    """Push the slot's stamped arrivals; count the overflow drops."""
     metrics = state.metrics
-    if tel is not None and metrics is None:
+    if cfg.telemetry and metrics is None:
         raise ValueError(
             "cfg.telemetry=True but the server state has no metrics lanes — "
             "build the state with host_server_init(cfg) using the SAME "
@@ -462,72 +511,301 @@ def _slot_body(cfg: HostServeConfig, consts: _SlotConsts,
     with obs_trace.span("host.ingest"):
         queue, _ = push_lane(state.queue, entries, node_ids, now,
                              now + cfg.qos_slots, mask)
-    if tel is not None:
+    if cfg.telemetry:
         with obs_trace.span("host.telemetry"):
             metrics = counter_add(
-                tel, metrics, "host.drops_overflow",
+                host_telemetry_spec(cfg), metrics, "host.drops_overflow",
                 queue.drops_overflow - state.queue.drops_overflow)
+    return _Carry(queue, state.cache, now, state.served,
+                  state.deadline_misses, state.ensemble_logits,
+                  state.ensemble_votes, metrics, (), None)
 
-    cache = state.cache
-    served, missed_total = state.served, state.deadline_misses
-    ens_l, ens_v = state.ensemble_logits, state.ensemble_votes
-    outs = []
-    for bi in range(cfg.batches_per_slot):
-        with obs_trace.span("host.batch", {"batch": bi}):
-            with obs_trace.span("host.pop"):
-                queue, batch, missed = edf_pop_batch(queue, cfg.batch_size,
-                                                     now=now)
-                missed_total = missed_total + missed
-                valid = batch.valid
-            with obs_trace.span("host.cache"):
-                sigs = batch_signatures(batch.payload)           # (B, 2)
-                hit, cached = cache_lookup_batch(cache, sigs, valid)
-            with obs_trace.span("host.recover"):
-                wins = _entry_windows(batch.payload, gen_params,
-                                      noise_fn(sigs), cfg.t, valid)
-            with obs_trace.span("host.dnn"):
-                computed = _host_dnn(cfg, host_params, wins,
-                                     batch.payload.task, consts)
-            with obs_trace.span("host.ensemble"):
-                # an all-hit batch answers every row from the cache (the
-                # reference skips recovery and the DNN for it); otherwise
-                # the hits do
-                all_hit = (hit | ~valid).all()
-                logits = torch.where(all_hit | hit[:, None], cached, computed)
-                served = served + valid.sum().to(torch.int32)
-                # per-node ensemble: mean-logit sum + majority-vote histogram
-                nid = torch.clamp(torch.where(valid, batch.node_id, 0), 0,
-                                  cfg.n_nodes - 1).to(torch.int64)
-                w = valid.to(torch.float32)[:, None]
-                ens_l = ens_l.index_add(0, nid, logits * w)
-                votes = ((torch.argmax(logits, dim=-1)[:, None]
-                          == consts.classes) & valid[:, None]).to(torch.int32)
-                ens_v = ens_v.index_add(0, nid, votes)
-                outs.append(SlotOutput(batch.node_id, logits, batch.deadline,
-                                       hit, valid))
-            with obs_trace.span("host.cache"):
-                fresh = valid & ~hit
-                cache = cache_insert_batch(cache, sigs, logits, fresh)
-                cache = cache._replace(
-                    hits=cache.hits + hit.sum().to(torch.int32),
-                    misses=cache.misses + fresh.sum().to(torch.int32))
-            if tel is not None:
-                with obs_trace.span("host.telemetry"):
-                    metrics = _batch_telemetry(tel, metrics, batch, now,
-                                               missed, hit, fresh)
 
-    if tel is not None:
+def _pop(cfg: HostServeConfig, c: _Carry) -> _Carry:
+    """Pop the next EDF microbatch and look its rows up in the cache."""
+    with obs_trace.span("host.pop"):
+        queue, batch, missed = edf_pop_batch(c.queue, cfg.batch_size,
+                                             now=c.now)
+    with obs_trace.span("host.cache"):
+        sigs = batch_signatures(batch.payload)                   # (B, 2)
+        hit, cached = cache_lookup_batch(c.cache, sigs, batch.valid)
+    return c._replace(queue=queue, missed=c.missed + missed,
+                      pending=_Pending(batch, missed, sigs, hit, cached))
+
+
+def _answer(cfg: HostServeConfig, consts: _SlotConsts, c: _Carry,
+            noise: dict, host_params: dict,
+            gen_params: GeneratorParams) -> _Carry:
+    """Answer the pending microbatch: recovery with ``noise``, the DNN, the
+    logits each row takes, the ensemble, the cache insert and the
+    microbatch's telemetry."""
+    batch, missed, sigs, hit, cached = c.pending
+    valid = batch.valid
+    wins = _entry_windows(batch.payload, gen_params, noise, cfg.t, valid)
+    with obs_trace.span("host.dnn"):
+        computed = _host_dnn(cfg, host_params, wins, batch.payload.task,
+                             consts)
+    with obs_trace.span("host.ensemble"):
+        # an all-hit batch answers every row from the cache (the reference
+        # skips recovery and the DNN for it); otherwise the hits do
+        all_hit = (hit | ~valid).all()
+        logits = torch.where(all_hit | hit[:, None], cached, computed)
+        served = c.served + valid.sum().to(torch.int32)
+        # per-node ensemble: mean-logit sum + majority-vote histogram
+        nid = torch.clamp(torch.where(valid, batch.node_id, 0), 0,
+                          cfg.n_nodes - 1).to(torch.int64)
+        w = valid.to(torch.float32)[:, None]
+        ens_l = c.ens_l.index_add(0, nid, logits * w)
+        votes = ((torch.argmax(logits, dim=-1)[:, None]
+                  == consts.classes) & valid[:, None]).to(torch.int32)
+        ens_v = c.ens_v.index_add(0, nid, votes)
+        out = SlotOutput(batch.node_id, logits, batch.deadline, hit, valid)
+    with obs_trace.span("host.cache"):
+        fresh = valid & ~hit
+        cache = cache_insert_batch(c.cache, sigs, logits, fresh)
+        cache = cache._replace(
+            hits=cache.hits + hit.sum().to(torch.int32),
+            misses=cache.misses + fresh.sum().to(torch.int32))
+    metrics = c.metrics
+    if cfg.telemetry:
+        with obs_trace.span("host.telemetry"):
+            metrics = _batch_telemetry(host_telemetry_spec(cfg), metrics,
+                                       batch, c.now, missed, hit, fresh)
+    return c._replace(cache=cache, served=served, ens_l=ens_l, ens_v=ens_v,
+                      metrics=metrics, outs=c.outs + (out,), pending=None)
+
+
+def _close(cfg: HostServeConfig, c: _Carry
+           ) -> tuple[HostServerState, SlotOutput]:
+    """The backlog's telemetry, then the slot's rows and the new state."""
+    metrics = c.metrics
+    if cfg.telemetry:
+        tel = host_telemetry_spec(cfg)
         with obs_trace.span("host.telemetry"):
             metrics = gauge_set(tel, metrics, "host.backlog",
-                                queue_occupancy(queue))
+                                queue_occupancy(c.queue))
             metrics = hist_observe(tel, metrics, "host.backlog_age_slots",
-                                   queue_wait_slots(queue, now), queue.valid)
+                                   queue_wait_slots(c.queue, c.now),
+                                   c.queue.valid)
     with obs_trace.span("host.finish"):
-        out = SlotOutput(*(torch.cat(xs, dim=0) for xs in zip(*outs)))
-        new_state = HostServerState(queue, cache, (now + 1).to(torch.int32),
-                                    served, missed_total, ens_l, ens_v,
-                                    metrics)
-    return new_state, out
+        out = SlotOutput(*(torch.cat(xs, dim=0) for xs in zip(*c.outs)))
+        state = HostServerState(c.queue, c.cache, (c.now + 1).to(torch.int32),
+                                c.served, c.missed, c.ens_l, c.ens_v, metrics)
+    return state, out
+
+
+def _segments(cfg: HostServeConfig, consts: _SlotConsts, host_params: dict,
+              gen_params: GeneratorParams) -> list:
+    """The serve slot as ``batches_per_slot + 1`` segment functions, split
+    where a microbatch's recovery noise is drawn.  The first takes
+    ``(state, entries, node_ids, mask)``, ingests and opens microbatch 0
+    (pop, signatures, lookup); segment ``i`` takes ``(carry, noise)``,
+    answers microbatch ``i - 1`` and opens microbatch ``i``; the last
+    closes the slot instead and returns ``(state', SlotOutput)``.  A
+    carry's ``pending.sigs`` is what the next noise is drawn from."""
+    n = cfg.batches_per_slot
+
+    def first(state, entries, node_ids, mask):
+        return _pop(cfg, _ingest(cfg, state, entries, node_ids, mask))
+
+    def answer(c, noise, last):
+        c = _answer(cfg, consts, c, noise, host_params, gen_params)
+        return _close(cfg, c) if last else _pop(cfg, c)
+
+    return [first] + [functools.partial(answer, last=bi == n - 1)
+                      for bi in range(n)]
+
+
+def _drive(step: Callable, n: int, noise_fn: Callable | None) -> None:
+    """Run a slot's segments in order: ``step(j, noise)`` runs segment
+    ``j`` and returns the signatures of the microbatch it opened, and
+    ``noise_fn`` draws their noise before segment ``j + 1``.  ``n`` noise
+    draws, or none for a slot run as one segment.  Every path records the
+    same spans here: one ``host.batch`` a microbatch (the first also holds
+    segment 0) and ``host.recover`` around each ``noise_fn`` call."""
+    sigs = None
+    for bi in range(max(n, 1)):
+        with obs_trace.span("host.batch", {"batch": bi}):
+            if bi == 0:
+                sigs = step(0, None)
+            if n:
+                with obs_trace.span("host.recover"):
+                    noise = noise_fn(sigs)
+                sigs = step(bi + 1, noise)
+
+
+def _run_eager(segs: list, args: tuple, noise_fn: Callable) -> tuple:
+    """The segments run eagerly in order; returns ``((state', SlotOutput),
+    the last noise)``."""
+    x, last = args, None
+
+    def step(j, noise):
+        nonlocal x, last
+        x, last = (segs[0](*x) if j == 0 else segs[j](x, noise)), noise
+        return x.pending.sigs if j < len(segs) - 1 else None
+
+    _drive(step, len(segs) - 1, noise_fn)
+    return x, last
+
+
+# captures, graph replays and eagerly run segments of serve slots
+_GRAPH_COUNTS = {"captures": 0, "replays": 0, "eager_segments": 0}
+# the captured graphs by key, least recently used first
+_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+_GRAPHS_KEPT = 8
+
+
+def serve_graph_counts() -> dict:
+    """How the serve slot ran in this process: ``captures`` (keys whose
+    segments were captured as CUDA graphs), ``replays`` (graph launches)
+    and ``eager_segments`` (segments run eagerly: on a device that is not
+    CUDA, and in the warm-up call that precedes each capture)."""
+    return dict(_GRAPH_COUNTS)
+
+
+class _SlotArgs(NamedTuple):
+    """What a serve slot takes."""
+
+    state: HostServerState
+    entries: HostPayload
+    node_ids: torch.Tensor
+    mask: torch.Tensor
+
+
+def _copy_leaves(dst, src) -> None:
+    """Copy each tensor of the tree ``src`` into its place in ``dst``, one
+    multi-tensor copy per dtype."""
+    groups = {}
+
+    def pair(d, s):
+        ds, ss = groups.setdefault(d.dtype, ([], []))
+        ds.append(d)
+        ss.append(s)
+
+    tree_map(pair, dst, src)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
+
+
+def _clone(tree):
+    """A copy of ``tree`` that the caller owns."""
+    new = tree_map(torch.empty_like, tree)
+    _copy_leaves(new, tree)
+    return new
+
+
+def _layout(*trees, addresses: bool = False) -> tuple:
+    """Shape and dtype of every tensor in ``trees`` and, with
+    ``addresses``, its data pointer and strides: what a captured graph was
+    built for."""
+    seen = []
+
+    def visit(t):
+        seen.append((t.shape, t.dtype) + (
+            (t.data_ptr(), t.stride()) if addresses else ()))
+        return t
+
+    for tree in trees:
+        tree_map(visit, tree)
+    return tuple(seen)
+
+
+class _SlotGraphs:
+    """The CUDA graphs of one serve-slot key: its segments captured in order
+    on one private memory pool (with the default noise, the whole slot as
+    one), replayed in that order around the caller's ``noise_fn``.  The
+    inputs are copied into the graphs' own buffers; the last graph writes
+    the new state back into its input buffers, and the caller gets clones,
+    so every result it holds stays its own."""
+
+    def __init__(self, segs: list, args: _SlotArgs, noise: dict | None,
+                 stream) -> None:
+        self.args = tree_map(torch.clone, args)
+        self.noise = (None if noise is None else
+                      {k: torch.empty_like(v) for k, v in noise.items()})
+        pool = torch.cuda.graph_pool_handle()
+        self.graphs, self.sigs = [], []
+        x = None
+        for j, seg in enumerate(segs):
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, pool=pool, stream=stream):
+                x = seg(*self.args) if j == 0 else seg(x, self.noise)
+                if j == len(segs) - 1:
+                    tree_map(torch.Tensor.copy_, self.args.state, x[0])
+            self.graphs.append(g)
+            if j < len(segs) - 1:
+                self.sigs.append(x.pending.sigs)
+        self.out = x[1]
+
+    def run(self, args: _SlotArgs, noise_fn: Callable | None
+            ) -> tuple[HostServerState, SlotOutput]:
+        result = None
+
+        def step(j, noise):
+            nonlocal result
+            if j == 0:
+                with obs_trace.span("host.ingest"):
+                    _copy_leaves(self.args, args)
+            else:
+                _copy_leaves(self.noise, noise)
+            self.graphs[j].replay()
+            if j < len(self.sigs):
+                return self.sigs[j].clone()
+            with obs_trace.span("host.finish"):
+                result = _clone(self.args.state), _clone(self.out)
+
+        _drive(step, len(self.sigs), noise_fn)
+        _GRAPH_COUNTS["replays"] += len(self.graphs)
+        return result
+
+
+def _slot_body(cfg: HostServeConfig, tag: str, state: HostServerState,
+               entries: HostPayload, node_ids: torch.Tensor,
+               mask: torch.Tensor, host_params: dict,
+               gen_params: GeneratorParams, seed: int,
+               noise_fn: Callable | None
+               ) -> tuple[HostServerState, SlotOutput]:
+    """One serve slot: ingest the stamped arrivals, then run
+    ``cfg.batches_per_slot`` EDF microbatches through cache, recovery and
+    DNN (:func:`_segments`).  On a CUDA device the first call of a key runs
+    the segments eagerly on a side stream, then captures them; later calls
+    replay the graphs.  Elsewhere, or inside a capture of the caller's, the
+    segments run eagerly."""
+    dev = state.slot.device
+    consts = _slot_consts(cfg, tag, entries.kind.shape[0], dev)
+    segs = _segments(cfg, consts, host_params, gen_params)
+    draw = noise_fn or functools.partial(counter_noise, seed=seed,
+                                         channels=cfg.channels, t=cfg.t)
+    args = _SlotArgs(state, entries, node_ids, mask)
+    if dev.type != "cuda" or torch.cuda.is_current_stream_capturing():
+        _GRAPH_COUNTS["eager_segments"] += len(segs)
+        return _run_eager(segs, args, draw)[0]
+    key = (cfg, tag, dev,
+           ("seed", seed) if noise_fn is None else "noise_fn",
+           _layout(args), _layout(host_params, gen_params, addresses=True),
+           torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    graphs = _GRAPHS.get(key)
+    if graphs is not None:
+        _GRAPHS.move_to_end(key)
+        return graphs.run(args, noise_fn)
+    with torch.cuda.device(dev):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            result, noise = _run_eager(segs, args, draw)
+        _GRAPH_COUNTS["eager_segments"] += len(segs)
+        caps = segs
+        if noise_fn is None:
+            # the default noise is tensor work: the slot is one segment
+            caps, noise = [lambda *a: _run_eager(segs, a, draw)[0]], None
+        _GRAPHS[key] = _SlotGraphs(caps, args, noise, side)
+        torch.cuda.current_stream().wait_stream(side)
+    compile_event(_GRAPH_COMPONENT, (cfg, tag))
+    _GRAPH_COUNTS["captures"] += 1
+    while len(_GRAPHS) > _GRAPHS_KEPT:
+        _GRAPHS.popitem(last=False)
+    return result
 
 
 def _batch_telemetry(tel: MetricsSpec, metrics: dict, batch, now, missed,
@@ -551,13 +829,6 @@ def _batch_telemetry(tel: MetricsSpec, metrics: dict, batch, now, missed,
     return counter_add(tel, metrics, "host.cache_misses", fresh)
 
 
-def _noise_fn(cfg: HostServeConfig, seed: int, noise_fn):
-    if noise_fn is not None:
-        return noise_fn
-    return functools.partial(counter_noise, seed=seed, channels=cfg.channels,
-                             t=cfg.t)
-
-
 def host_serve_slot(state: HostServerState, entries: HostPayload,
                     node_ids, mask, *, cfg: HostServeConfig,
                     host_params: dict, gen_params: GeneratorParams,
@@ -572,11 +843,10 @@ def host_serve_slot(state: HostServerState, entries: HostPayload,
     _check_lane_width(cfg, entries.kind.shape[0])
     with obs_trace.span("host.ingest"):
         dev = state.slot.device
-        consts = _slot_consts(cfg, "slot", entries.kind.shape[0], dev)
         node_ids = torch.as_tensor(node_ids, device=dev).to(torch.int32)
         mask = torch.as_tensor(mask, device=dev).to(torch.bool)
-    return _slot_body(cfg, consts, state, entries, node_ids, mask,
-                      host_params, gen_params, _noise_fn(cfg, seed, noise_fn))
+    return _slot_body(cfg, "slot", state, entries, node_ids, mask,
+                      host_params, gen_params, seed, noise_fn)
 
 
 def host_serve_trace(state: HostServerState, entries: HostPayload,
@@ -589,16 +859,14 @@ def host_serve_trace(state: HostServerState, entries: HostPayload,
     stacked slot outputs.  Chaining two traces equals one long trace."""
     _check_lane_width(cfg, entries.kind.shape[1])
     dev = state.slot.device
-    consts = _slot_consts(cfg, "trace", entries.kind.shape[1], dev)
     node_ids = torch.as_tensor(node_ids, device=dev).to(torch.int32)
     masks = torch.as_tensor(masks, device=dev).to(torch.bool)
-    fn = _noise_fn(cfg, seed, noise_fn)
     outs = []
     for si in range(entries.kind.shape[0]):
-        state, out = _slot_body(cfg, consts, state,
+        state, out = _slot_body(cfg, "trace", state,
                                 tree_map(lambda a: a[si], entries),
                                 node_ids[si], masks[si], host_params,
-                                gen_params, fn)
+                                gen_params, seed, noise_fn)
         outs.append(out)
     return state, SlotOutput(*(torch.stack(xs) for xs in zip(*outs)))
 

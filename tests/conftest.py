@@ -12,3 +12,5 @@ def key():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")

@@ -46,7 +46,7 @@ FLEET_PARENT = {"fleet.step": None, "fleet.prepare": "fleet.step",
 HOST_PARENT = {"host.serve_step": None, "host.encode": "host.serve_step",
                "host.batch": "host.serve_step", "host.pop": "host.batch",
                "host.recover": "host.batch", "host.dnn": "host.batch",
-               "host.finish": "host.serve_step"}
+               "host.finish": "host.batch"}
 # the readers: each metric's spans and the span that counts its slots
 READERS = {
     "fleet.edge_ms_per_slot": (("fleet.noise", "fleet.corr", "fleet.sensor",
@@ -329,8 +329,10 @@ def test_host_serve_step_spans(model):
     for name, parent in HOST_PARENT.items():
         assert parents[name] == {parent}, name
     assert parents["host.cache"] == parents["host.ensemble"] == {"host.batch"}
-    assert parents["host.telemetry"] == {"host.serve_step", "host.batch"}
-    assert parents["host.ingest"] == {"host.serve_step"}
+    # the first microbatch's span holds the slot's ingest, the last its
+    # backlog telemetry and finish
+    assert parents["host.telemetry"] == {"host.batch"}
+    assert parents["host.ingest"] == {"host.serve_step", "host.batch"}
     first = [e for e in evs if e["name"] == "host.batch"][:batches]
     assert [e["args"]["batch"] for e in first] == list(range(batches))
     step = next(e for e in evs if e["name"] == "host.serve_step")
