@@ -269,7 +269,10 @@ def metrics_psum(spec: MetricsSpec, metrics: dict, group=None) -> dict:
     their digit sums stay exact in int32 for any realistic rank count.  The
     lanes travel as one flat int32 tensor, one all-reduce."""
     import torch.distributed as dist
+
+    from ..sharding import _count
     flat = torch.cat([metrics[ln.name].reshape(-1) for ln in spec.lanes])
+    _count("all_reduce", flat)
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     out, at = {}, 0
     for ln in spec.lanes:

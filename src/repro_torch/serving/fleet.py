@@ -20,7 +20,11 @@ Every driver marks these steps with :mod:`repro_torch.obs.trace` spans:
 ``fleet.step`` around the call, ``fleet.prepare``, one ``fleet.slot`` a
 slot holding ``fleet.noise``, then per node block ``fleet.corr``,
 ``fleet.sensor``, ``fleet.intermittent`` (when on) and ``fleet.host``, then
-``fleet.carry``; and ``fleet.aggregates``.
+``fleet.carry``; and ``fleet.aggregates``.  The node-sharded driver adds
+``fleet.tile`` inside ``fleet.prepare`` (its rank's tile of the global
+inputs and of the carried state) and ``fleet.collect`` inside
+``fleet.aggregates`` (the all-reduce of the counts and the gathers of the
+traces and the carry).
 
 Randomness comes from one of three sources, and a run takes one:
 
@@ -1158,87 +1162,92 @@ def seeker_fleet_simulate_sharded(
             win = _as_array(windows)
             shared_stream = _check_windows(tuple(win.shape), n, s, har_cfg)
             t, c = win.shape[-2:]
-            pad, lo, hi = shard.bounds(n)
-            rows = functools.partial(_tile, n=n, lo=lo, hi=hi, dev=dev)
-            mask = torch.arange(lo, hi, device=dev) < n
-            if shared_stream:
-                xs_w = to_device(win, dev, torch.float32).contiguous()
-            else:
-                xs_w = rows(win, dtype=torch.float32).transpose(
-                    0, 1).contiguous()
-            harv = rows(harvest, dtype=torch.float32)
-            alive_g = _check_alive(alive, n, s)
-            # padding nodes are permanently dead: their ladder never runs
-            exo_alive = (mask[:, None].expand(hi - lo, s).clone()
-                         if alive_g is None
-                         else rows(alive_g, dtype=torch.bool))
-            labels_g, per_node_labels = _labels_layout(labels, s, n,
-                                                       shared_stream)
-            if labels_g is None:
-                labels_t = None
-            elif per_node_labels:
-                labels_t = rows(labels_g, dtype=torch.int64, dim=1)
-            else:
-                labels_t = to_device(labels_g, dev, torch.int64)
-            filler = fleet_node_init(max(hi - max(lo, n), 0),
-                                     predictor_window, initial_uj, dev)
-            if state0 is None:
-                state = fleet_node_init(hi - lo, predictor_window,
-                                        initial_uj, dev)
-            else:
-                lead = _as_array(state0.stored_uj).shape[0]
-                if lead != n:
-                    raise ValueError(f"state0 is stacked for {lead} nodes, "
-                                     f"fleet has {n}")
-                state = rows(state0, fill=filler)
-            if brownout_state0 is not None:
-                b0 = _as_array(brownout_state0)
-                if tuple(b0.shape) != (n,):
-                    raise ValueError(f"brownout_state0 must be (N,)=({n},) "
-                                     f"bool, got {tuple(b0.shape)}")
-                browned0 = rows(b0, dtype=torch.bool)
-            else:
-                # boot-time hysteresis on the real nodes; padding held awake
-                browned0 = _resolve_brownout0(None, state, brownout,
-                                              hi - lo) & mask
-            _validate_intermittent_args(intermittent, intermittent_state0,
-                                        aux_params, n)
-            tasks, task = _resolve_tasks(tasks, task, n, dev)
-            host_params = _resolve_task_host(task, host_params)
-            # padding: task 0
-            tasks_t = None if tasks is None else rows(tasks)
-            tel_spec = _resolve_telemetry(telemetry, intermittent, task)
-            active = _active_lanes(intermittent, task, brownout)
-            it = None
-            if intermittent is not None:
-                it_fill = intermittent_fleet_init(filler.stored_uj.shape[0],
-                                                  har_cfg, dev)
-                it = (intermittent_fleet_init(hi - lo, har_cfg, dev)
-                      if intermittent_state0 is None
-                      else rows(intermittent_state0, fill=it_fill))
-            keys0 = None
-            if noise is not None:
-                tile_noise = _check_noise(
-                    noise, s, n, t, c,
-                    functools.partial(rows, dtype=torch.float32, dim=1))
+            # this rank's tile of every per-node input and of the carried
+            # whole-fleet state
+            with obs_trace.span("fleet.tile"):
+                pad, lo, hi = shard.bounds(n)
+                rows = functools.partial(_tile, n=n, lo=lo, hi=hi, dev=dev)
+                mask = torch.arange(lo, hi, device=dev) < n
+                if shared_stream:
+                    xs_w = to_device(win, dev, torch.float32).contiguous()
+                else:
+                    xs_w = rows(win, dtype=torch.float32).transpose(
+                        0, 1).contiguous()
+                harv = rows(harvest, dtype=torch.float32)
+                alive_g = _check_alive(alive, n, s)
+                # padding nodes are permanently dead: their ladder never runs
+                exo_alive = (mask[:, None].expand(hi - lo, s).clone()
+                             if alive_g is None
+                             else rows(alive_g, dtype=torch.bool))
+                labels_g, per_node_labels = _labels_layout(labels, s, n,
+                                                           shared_stream)
+                if labels_g is None:
+                    labels_t = None
+                elif per_node_labels:
+                    labels_t = rows(labels_g, dtype=torch.int64, dim=1)
+                else:
+                    labels_t = to_device(labels_g, dev, torch.int64)
+                filler = fleet_node_init(max(hi - max(lo, n), 0),
+                                         predictor_window, initial_uj, dev)
+                if state0 is None:
+                    state = fleet_node_init(hi - lo, predictor_window,
+                                            initial_uj, dev)
+                else:
+                    lead = _as_array(state0.stored_uj).shape[0]
+                    if lead != n:
+                        raise ValueError(f"state0 is stacked for {lead} "
+                                         f"nodes, fleet has {n}")
+                    state = rows(state0, fill=filler)
+                if brownout_state0 is not None:
+                    b0 = _as_array(brownout_state0)
+                    if tuple(b0.shape) != (n,):
+                        raise ValueError(f"brownout_state0 must be "
+                                         f"(N,)=({n},) bool, got "
+                                         f"{tuple(b0.shape)}")
+                    browned0 = rows(b0, dtype=torch.bool)
+                else:
+                    # boot-time hysteresis on the real nodes; padding held
+                    # awake
+                    browned0 = _resolve_brownout0(None, state, brownout,
+                                                  hi - lo) & mask
+                _validate_intermittent_args(intermittent, intermittent_state0,
+                                            aux_params, n)
+                tasks, task = _resolve_tasks(tasks, task, n, dev)
+                host_params = _resolve_task_host(task, host_params)
+                # padding: task 0
+                tasks_t = None if tasks is None else rows(tasks)
+                tel_spec = _resolve_telemetry(telemetry, intermittent, task)
+                active = _active_lanes(intermittent, task, brownout)
+                it = None
+                if intermittent is not None:
+                    it_fill = intermittent_fleet_init(
+                        filler.stored_uj.shape[0], har_cfg, dev)
+                    it = (intermittent_fleet_init(hi - lo, har_cfg, dev)
+                          if intermittent_state0 is None
+                          else rows(intermittent_state0, fill=it_fill))
+                keys0 = None
+                if noise is not None:
+                    tile_noise = _check_noise(
+                        noise, s, n, t, c,
+                        functools.partial(rows, dtype=torch.float32, dim=1))
 
-                def slot_noise(si, keys):
-                    return {k: v[si] for k, v in tile_noise.items()}, None
-            elif node_keys is not None:
-                # this tile's keys; padding nodes get inert zero keys
-                keys0 = _check_keys(
-                    node_keys, n, functools.partial(rows, dtype=torch.int64))
+                    def slot_noise(si, keys):
+                        return {k: v[si] for k, v in tile_noise.items()}, None
+                elif node_keys is not None:
+                    # this tile's keys; padding nodes get inert zero keys
+                    keys0 = _check_keys(node_keys, n, functools.partial(
+                        rows, dtype=torch.int64))
 
-                def slot_noise(si, keys):
-                    return draw_slot_noise_keyed(keys, t, c)
-            else:
-                generator = _check_generator(generator, dev)
+                    def slot_noise(si, keys):
+                        return draw_slot_noise_keyed(keys, t, c)
+                else:
+                    generator = _check_generator(generator, dev)
 
-                def slot_noise(si, keys):
-                    # the whole fleet's batch, from the same stream on
-                    # every rank
-                    return {k: rows(v) for k, v in
-                            draw_slot_noise(generator, n, t, c).items()}, None
+                    def slot_noise(si, keys):
+                        # the whole fleet's batch, from the same stream on
+                        # every rank
+                        return {k: rows(v) for k, v in draw_slot_noise(
+                            generator, n, t, c).items()}, None
             carry = FleetCarry(
                 node=state, keys=keys0, intermittent=it, brownout=browned0,
                 telemetry=(None if tel_spec is None
@@ -1257,20 +1266,23 @@ def seeker_fleet_simulate_sharded(
             intermittent=intermittent, tel_spec=tel_spec, active=active,
             slot0=slot0, node_block=node_block)
         with obs_trace.span("fleet.aggregates"):
-            aggs = _reduce_aggregates(_fleet_aggregates(
+            aggs = _fleet_aggregates(
                 traces, exo_alive.T, labels_t, per_node_labels, intermittent,
-                slot0, tasks_t, task, mask=mask), shard)
-
-            gathered = {k: _gather_nodes(traces[k], shard, n, dim=1)
-                        for k in fleet_trace_keys(active) if k != "preds"}
+                slot0, tasks_t, task, mask=mask)
+            # the collectives: every rank's counts summed, every tile's
+            # traces and carry gathered
+            with obs_trace.span("fleet.collect"):
+                aggs = _reduce_aggregates(aggs, shard)
+                gathered = {k: _gather_nodes(traces[k], shard, n, dim=1)
+                            for k in fleet_trace_keys(active) if k != "preds"}
+                carry = FleetCarry(
+                    node=_gather_nodes(carry.node, shard, n),
+                    keys=_gather_nodes(carry.keys, shard, n),
+                    brownout=_gather_nodes(carry.brownout, shard, n),
+                    intermittent=_gather_nodes(carry.intermittent, shard, n),
+                    telemetry=None if tel_spec is None else metrics_psum(
+                        tel_spec, carry.telemetry, shard.group))
             gathered["preds"] = torch.argmax(gathered["logits"], dim=-1)
-            carry = FleetCarry(
-                node=_gather_nodes(carry.node, shard, n),
-                keys=_gather_nodes(carry.keys, shard, n),
-                brownout=_gather_nodes(carry.brownout, shard, n),
-                intermittent=_gather_nodes(carry.intermittent, shard, n),
-                telemetry=None if tel_spec is None else metrics_psum(
-                    tel_spec, carry.telemetry, shard.group))
             out = _fleet_result(gathered, aggs, carry, active=active,
                                 intermittent=intermittent, tel_spec=tel_spec,
                                 telemetry_state0=telemetry_state0,

@@ -36,7 +36,10 @@ manual region):
   refuses CUDA tensors in ``all_gather`` and in point-to-point sends, so
   those two stage such a tensor through the CPU; ``all_reduce`` takes it
   on the card.  Neither backend carries int16, so the wire format's int16
-  codes travel as their bytes.
+  codes travel as their bytes.  Over NCCL all three stay on the device.
+* :func:`collective_counts`: the calls and bytes of those collectives (and
+  of :func:`repro_torch.obs.metrics_psum`'s all-reduce) this process
+  issued, counted on the host at issue.
 """
 from __future__ import annotations
 
@@ -54,7 +57,8 @@ __all__ = ["DEFAULT_RULES", "FSDP_RULES", "DP_TP_RULES", "PURE_DP_RULES",
            "strip_rules", "take_last", "is_dtensor", "is_spec",
            "NodeShard", "node_mesh_axes", "make_mesh",
            "tile_bounds", "tile_index", "node_shard", "group_shard",
-           "all_reduce_sum", "all_gather_tiles", "exchange"]
+           "all_reduce_sum", "all_gather_tiles", "exchange",
+           "collective_counts"]
 
 # Logical axis -> mesh axis (or tuple of mesh axes, major to minor).  Mesh
 # axes absent from the active mesh are dropped at resolution time, so one
@@ -469,6 +473,25 @@ def group_shard(group=None) -> NodeShard:
                      backend=str(dist.get_backend(group)))
 
 
+_COLLECTIVES = {kind: {"calls": 0, "bytes": 0}
+                for kind in ("all_reduce", "all_gather", "point_to_point")}
+
+
+def collective_counts() -> dict:
+    """The collectives this process issued, by kind (``all_reduce``,
+    ``all_gather``, ``point_to_point``): ``calls`` and ``bytes``, the
+    bytes of the tensor this rank put in (an all-gather's own tile, a
+    point-to-point exchange's send).  Counted on the host when a call is
+    issued, from shapes alone: reading them never synchronises."""
+    return {kind: dict(c) for kind, c in _COLLECTIVES.items()}
+
+
+def _count(kind: str, x: torch.Tensor) -> None:
+    c = _COLLECTIVES[kind]
+    c["calls"] += 1
+    c["bytes"] += x.numel() * x.element_size()
+
+
 def _staged(x: torch.Tensor, shard: NodeShard) -> bool:
     """Does this collective take ``x`` through the CPU?  Gloo's
     ``all_gather`` and point-to-point ops accept CPU tensors only."""
@@ -486,6 +509,7 @@ def all_reduce_sum(x: torch.Tensor, shard: NodeShard) -> torch.Tensor:
     """The sum of ``x`` over the shard's ranks (a new tensor)."""
     import torch.distributed as dist
     out = x.clone()
+    _count("all_reduce", out)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=shard.group)
     return out
 
@@ -500,6 +524,7 @@ def all_gather_tiles(x: torch.Tensor, shard: NodeShard, dim: int = 0
     if _staged(src, shard):
         src = src.cpu()
     parts = [torch.empty_like(src) for _ in range(shard.quantum)]
+    _count("all_gather", src)
     dist.all_gather(parts, src, group=shard.group)
     out = torch.cat([parts[g] for g in shard.order], dim=0)
     return out.to(x.device).view(x.dtype).movedim(0, dim)
@@ -518,6 +543,7 @@ def exchange(x: torch.Tensor, shard: NodeShard, dst: int, src: int
     if _staged(send, shard):
         send = send.cpu()
     recv = torch.empty_like(send)
+    _count("point_to_point", send)
     ops = [dist.P2POp(dist.isend, send, dst, shard.group),
            dist.P2POp(dist.irecv, recv, src, shard.group)]
     for work in dist.batch_isend_irecv(ops):
