@@ -38,7 +38,8 @@ def fmix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-# never evicted: a captured serve graph (host/server.py) reads it
+# never evicted: a captured serve or fleet graph (host/server.py,
+# serving/fleet.py) reads it
 @functools.lru_cache(maxsize=None)
 def counters(n: int, device: torch.device) -> torch.Tensor:
     """(n,) the element counters' golden-ratio spread, made once per size."""

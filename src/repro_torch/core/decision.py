@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import dataclasses
+import functools
 
 import torch
 
@@ -71,6 +72,16 @@ def decision_energy(costs: EnergyCosts, device=None) -> torch.Tensor:
                         device=device)
 
 
+# never evicted: a captured fleet slot (serving/fleet.py) reads it
+@functools.lru_cache(maxsize=None)
+def _decision_table(costs: tuple, device: torch.device) -> torch.Tensor:
+    """:func:`decision_energy` of the ``costs`` (an
+    :meth:`EnergyCosts.decision_costs` tuple) made once per table and
+    device, so a slot copies nothing from the host; callers only read
+    it."""
+    return torch.tensor(costs, dtype=torch.float32, device=device)
+
+
 def choose_decision(max_corr: torch.Tensor, stored_uj: torch.Tensor,
                     forecast_uj: torch.Tensor, costs: EnergyCosts,
                     corr_threshold: float = 0.95,
@@ -93,7 +104,7 @@ def choose_decision(max_corr: torch.Tensor, stored_uj: torch.Tensor,
     """
     strict = harvested_uj is not None
     budget = stored_uj + (harvested_uj if strict else forecast_uj)
-    cost = decision_energy(costs, device=budget.device)
+    cost = _decision_table(costs.decision_costs(), budget.device)
     if cost_scale is not None:
         cost = cost * cost_scale[..., None]                  # (..., 9)
 

@@ -26,25 +26,14 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..graph_io import tree_map
+
 __all__ = ["PayloadQueue", "queue_init", "queue_push", "queue_push_batch",
            "queue_occupancy", "queue_wait_slots", "NO_DEADLINE",
            "push_lane", "tree_map"]
 
 # deadline key for empty slots: sorts after every real deadline
 NO_DEADLINE = 2 ** 31 - 1
-
-
-def tree_map(fn, *trees):
-    """``fn`` over the leaves of NamedTuples or dicts of tensors; a None
-    (an absent part, such as a state without telemetry lanes) stays None."""
-    t0 = trees[0]
-    if t0 is None:
-        return None
-    if isinstance(t0, tuple) and hasattr(t0, "_fields"):
-        return type(t0)(*(tree_map(fn, *xs) for xs in zip(*trees)))
-    if isinstance(t0, dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
-    return fn(*trees)
 
 
 class PayloadQueue(NamedTuple):

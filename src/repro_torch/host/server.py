@@ -84,6 +84,7 @@ from ..core.counter_hash import (box_muller, counter_words, fmix32,
                                  word_uniforms)
 from ..core.recovery import (GeneratorParams, recover_cluster_window,
                              recover_sampling_window)
+from ..graph_io import clone, copy_leaves, layout
 from ..models.har import har_apply
 from ..obs import trace as obs_trace
 from ..obs import (MetricsSpec, counter, counter_add, gauge, gauge_set,
@@ -672,44 +673,6 @@ class _SlotArgs(NamedTuple):
     mask: torch.Tensor
 
 
-def _copy_leaves(dst, src) -> None:
-    """Copy each tensor of the tree ``src`` into its place in ``dst``, one
-    multi-tensor copy per dtype."""
-    groups = {}
-
-    def pair(d, s):
-        ds, ss = groups.setdefault(d.dtype, ([], []))
-        ds.append(d)
-        ss.append(s)
-
-    tree_map(pair, dst, src)
-    for ds, ss in groups.values():
-        torch._foreach_copy_(ds, ss)
-
-
-def _clone(tree):
-    """A copy of ``tree`` that the caller owns."""
-    new = tree_map(torch.empty_like, tree)
-    _copy_leaves(new, tree)
-    return new
-
-
-def _layout(*trees, addresses: bool = False) -> tuple:
-    """Shape and dtype of every tensor in ``trees`` and, with
-    ``addresses``, its data pointer and strides: what a captured graph was
-    built for."""
-    seen = []
-
-    def visit(t):
-        seen.append((t.shape, t.dtype) + (
-            (t.data_ptr(), t.stride()) if addresses else ()))
-        return t
-
-    for tree in trees:
-        tree_map(visit, tree)
-    return tuple(seen)
-
-
 class _SlotGraphs:
     """The CUDA graphs of one serve-slot key: its segments captured in order
     on one private memory pool (with the default noise, the whole slot as
@@ -745,14 +708,14 @@ class _SlotGraphs:
             nonlocal result
             if j == 0:
                 with obs_trace.span("host.ingest"):
-                    _copy_leaves(self.args, args)
+                    copy_leaves(self.args, args)
             else:
-                _copy_leaves(self.noise, noise)
+                copy_leaves(self.noise, noise)
             self.graphs[j].replay()
             if j < len(self.sigs):
                 return self.sigs[j].clone()
             with obs_trace.span("host.finish"):
-                result = _clone(self.args.state), _clone(self.out)
+                result = clone(self.args.state), clone(self.out)
 
         _drive(step, len(self.sigs), noise_fn)
         _GRAPH_COUNTS["replays"] += len(self.graphs)
@@ -782,7 +745,7 @@ def _slot_body(cfg: HostServeConfig, tag: str, state: HostServerState,
         return _run_eager(segs, args, draw)[0]
     key = (cfg, tag, dev,
            ("seed", seed) if noise_fn is None else "noise_fn",
-           _layout(args), _layout(host_params, gen_params, addresses=True),
+           layout(args), layout(host_params, gen_params, addresses=True),
            torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32)
     graphs = _GRAPHS.get(key)

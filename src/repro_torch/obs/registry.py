@@ -127,7 +127,8 @@ def lane_edges(lane: Lane) -> tuple[float, ...]:
     return tuple(float(k) + 0.5 for k in range(lane.bins - 1))
 
 
-# never evicted: a captured serve graph (host/server.py) reads it
+# never evicted: a captured serve or fleet graph (host/server.py,
+# serving/fleet.py) reads it
 @functools.lru_cache(maxsize=None)
 def _edges_tensor(lane: Lane, device: torch.device) -> torch.Tensor:
     """:func:`lane_edges` as float32 on ``device``, made once: a slot's

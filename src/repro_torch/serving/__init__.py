@@ -19,7 +19,7 @@ from .edge_host import (  # noqa: F401
 from .fleet import (  # noqa: F401
     fleet_node_init, fleet_node_keys, draw_slot_noise,
     draw_slot_noise_keyed, draw_fleet_noise, resolve_device,
-    fleet_telemetry_spec, seeker_fleet_simulate,
+    fleet_graph_counts, fleet_telemetry_spec, seeker_fleet_simulate,
     seeker_fleet_simulate_sharded, seeker_fleet_simulate_streamed,
     wire_bytes_exact,
 )

@@ -119,6 +119,22 @@ def seeker_sensor_step(window: torch.Tensor, state: SeekerNodeState,
         quant_bits=quant_bits, corr_threshold=corr_threshold)
 
 
+# never evicted: a captured fleet slot (serving/fleet.py) reads it
+@functools.lru_cache(maxsize=None)
+def _payload_table(m_samples: int, channels: int,
+                   device: torch.device) -> torch.Tensor:
+    """(6,) float32 payload bytes by decision code up to DEFER (D3's AAC
+    bytes are computed per node), made once per sampling size, channel
+    count and device; callers only read it."""
+    return torch.tensor([
+        2.0,                                              # D0: a label
+        2.0, 2.0,                                         # D1/D2: a result
+        0.0,                                              # D3: AAC (below)
+        float(sampling_payload_bytes(m_samples, channels=channels)),
+        0.0,                                              # DEFER
+    ], dtype=torch.float32, device=device)
+
+
 def seeker_sensor_step_given_corr(
         window: torch.Tensor, state: SeekerNodeState,
         harvested_uj: torch.Tensor, corr: torch.Tensor, u: torch.Tensor, *,
@@ -170,13 +186,7 @@ def seeker_sensor_step_given_corr(
 
     # --- bookkeeping --------------------------------------------------------
     c = window.shape[-1]
-    bytes_by_decision = torch.tensor([
-        2.0,                                              # D0: a label
-        2.0, 2.0,                                         # D1/D2: a result
-        0.0,                                              # D3: AAC (below)
-        float(sampling_payload_bytes(m_samples, channels=c)),
-        0.0,                                              # DEFER
-    ], dtype=torch.float32, device=window.device)
+    bytes_by_decision = _payload_table(m_samples, c, window.device)
     kf = k_sel.to(torch.float32)
     aac_bytes = (kf * 3.0 + torch.ceil(kf / 2.0)) * c
     payload = torch.where(decision == D3_CLUSTER, aac_bytes,

@@ -16,11 +16,18 @@ nothing loops over nodes:
    classifies every offloaded window;
 4. the fleet aggregates are reduced once, after the last slot.
 
+On a CUDA device the slot loop is captured as CUDA graphs, one a slot of
+the call, the first time a key (shapes, lanes and their configs, the
+weights' addresses) is called, and replayed after (:func:`_run_slots`);
+:func:`fleet_graph_counts` counts captures, replays and slots run
+eagerly.
+
 Every driver marks these steps with :mod:`repro_torch.obs.trace` spans:
 ``fleet.step`` around the call, ``fleet.prepare``, one ``fleet.slot`` a
 slot holding ``fleet.noise``, then per node block ``fleet.corr``,
 ``fleet.sensor``, ``fleet.intermittent`` (when on) and ``fleet.host``, then
-``fleet.carry``; and ``fleet.aggregates``.  The node-sharded driver adds
+``fleet.carry``; and ``fleet.aggregates``.  A replayed slot records its
+``fleet.slot`` alone.  The node-sharded engine adds
 ``fleet.tile`` inside ``fleet.prepare`` (its rank's tile of the global
 inputs and of the carried state) and ``fleet.collect`` inside
 ``fleet.aggregates`` (the all-reduce of the counts and the gathers of the
@@ -78,7 +85,9 @@ the telemetry lanes and, after the last slot, the traces cross ranks.
 """
 from __future__ import annotations
 
+import collections
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -91,11 +100,13 @@ from ..core.decision import (D4_SAMPLING, DEFER, N_INTERMITTENT_DECISIONS,
                              IntermittentConfig)
 from ..core.energy import (BrownoutConfig, EnergyCosts, predictor_init,
                            supercap_step)
+from ..graph_io import clone, copy_leaves, layout, tree_map
 from ..kernels.ops import signature_corr_op
 from ..models.har import HARConfig, quantize_params
 from ..obs import (MetricsSpec, categorical_counts, counters_add,
                    metrics_init, metrics_merge, metrics_psum, spec_union)
 from ..obs import trace as obs_trace
+from ..obs.compile_guard import compile_event
 from ..sharding import (NodeShard, all_gather_tiles, all_reduce_sum,
                         make_mesh, node_shard)
 from .edge_host import (IntermittentState, SeekerNodeState,
@@ -109,7 +120,8 @@ from .fleet_lanes import (FLEET_LANES, N_DECISIONS, FleetCarry,
 __all__ = ["N_DECISIONS", "NOISE_KEYS", "resolve_device", "to_device",
            "fleet_node_init", "fleet_node_keys", "draw_slot_noise",
            "draw_slot_noise_keyed", "draw_fleet_noise",
-           "fleet_telemetry_spec", "seeker_fleet_simulate",
+           "fleet_graph_counts", "fleet_telemetry_spec",
+           "seeker_fleet_simulate",
            "seeker_fleet_simulate_sharded", "seeker_fleet_simulate_streamed",
            "wire_bytes_exact"]
 
@@ -145,17 +157,6 @@ def to_device(x, device=None, dtype: torch.dtype | None = None):
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.array(x))
     return x.to(device=dev, dtype=dtype or x.dtype)
-
-
-def _tree_map(fn, *trees):
-    t0 = trees[0]
-    if t0 is None:
-        return None
-    if isinstance(t0, tuple) and hasattr(t0, "_fields"):
-        return type(t0)(*(_tree_map(fn, *xs) for xs in zip(*trees)))
-    if isinstance(t0, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
-    return fn(*trees)
 
 
 def _active_lanes(intermittent: IntermittentConfig | None = None,
@@ -499,7 +500,7 @@ def _host_logits(out, nz, host_idx, *, host_params, gen_params, t):
         if idx.numel() == 0:
             continue
         part = seeker_host_step(
-            _tree_map(lambda x: x[idx], sensor), nz["dirs"][idx],
+            tree_map(lambda x: x[idx], sensor), nz["dirs"][idx],
             nz["radii_u"][idx], nz["latent"][idx], host_params=params,
             gen_params=gen_params, t=t)
         logits = logits.index_copy(0, idx, part)
@@ -743,7 +744,7 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
                                            har_cfg)
             t, c = windows.shape[-2:]
             xs_w = (windows.contiguous() if shared_stream      # (S, T, C)
-                    else windows.transpose(0, 1).contiguous())  # (S, N, T, C)
+                    else windows.transpose(0, 1))               # (S, N, T, C)
             labels, per_node_labels = _resolve_labels(labels, s, n,
                                                       shared_stream, dev)
             exo_alive = _resolve_alive(alive, n, s, dev)
@@ -766,25 +767,17 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
                 it = (intermittent_fleet_init(n, har_cfg, dev)
                       if intermittent_state0 is None
                       else to_device(intermittent_state0, dev))
-            keys0 = None
+            keys0 = draw = None
             if noise is not None:
                 noise = _check_noise(
                     noise, s, n, t, c,
                     lambda v: to_device(v, dev, torch.float32))
-
-                def slot_noise(si, keys):
-                    return {k: v[si] for k, v in noise.items()}, None
             elif node_keys is not None:
                 keys0 = _check_keys(node_keys, n,
                                     lambda v: to_device(v, dev, torch.int64))
-
-                def slot_noise(si, keys):
-                    return draw_slot_noise_keyed(keys, t, c)
             else:
-                generator = _check_generator(generator, dev)
-
-                def slot_noise(si, keys):
-                    return draw_slot_noise(generator, n, t, c), None
+                draw = functools.partial(
+                    draw_slot_noise, _check_generator(generator, dev), n, t, c)
             carry = FleetCarry(
                 node=state, keys=keys0, intermittent=it,
                 # the run counts a delta from zero; telemetry_state0 is
@@ -793,7 +786,7 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
                            else metrics_init(tel_spec, dev)),
                 brownout=_resolve_brownout0(brownout_state0, state, brownout,
                                             n))
-            params = _model_params(
+            params, own_weights = _model_params(
                 signatures=signatures, qdnn_params=qdnn_params,
                 host_params=host_params, gen_params=gen_params,
                 aac_table=aac_table, costs=costs, quant_bits=quant_bits,
@@ -802,10 +795,10 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
                 brownout=brownout, intermittent=intermittent,
                 aux_params=aux_params, task=task, dev=dev)
         traces, carry = _run_slots(
-            xs_w, harvest, exo_alive, carry, slot_noise, params=params,
-            tasks=tasks, task=task, brownout=brownout,
-            intermittent=intermittent, tel_spec=tel_spec, active=active,
-            slot0=slot0, node_block=node_block)
+            xs_w, harvest, exo_alive, carry, noise=noise, draw=draw,
+            params=params, own_weights=own_weights, tasks=tasks, task=task,
+            brownout=brownout, intermittent=intermittent, tel_spec=tel_spec,
+            active=active, slot0=slot0, node_block=node_block)
         with obs_trace.span("fleet.aggregates"):
             aggs = _fleet_aggregates(traces, exo_alive.T, labels,
                                      per_node_labels, intermittent, slot0,
@@ -852,15 +845,18 @@ def _check_generator(generator: torch.Generator | None, dev
 def _model_params(*, signatures, qdnn_params, host_params, gen_params,
                   aac_table, costs, quant_bits, k_max, m_samples,
                   corr_threshold, har_cfg, brownout, intermittent,
-                  aux_params, task, dev) -> dict:
+                  aux_params, task, dev) -> tuple[dict, bool]:
     """The slot's replicated inputs on ``dev``: the signature bank, the
     quantized D2 (and auxiliary-head) weights, the host and generator
-    weights, and the ladder's knobs."""
+    weights, and the ladder's knobs; and whether every tensor of the
+    weights :data:`_WEIGHTS` names is the caller's own (none was copied to
+    reach ``dev``), which a captured slot reads where it lies."""
+    given = (signatures, host_params, gen_params, aac_table)
     if task is not None and task.per_task_host:
         host_params = tuple(to_device(p, dev) for p in host_params)
     else:
         host_params = to_device(host_params, dev)
-    return dict(
+    params = dict(
         signatures=to_device(signatures, dev, torch.float32).contiguous(),
         qp=quantize_params(to_device(qdnn_params, dev), quant_bits),
         qa=(None if intermittent is None else
@@ -874,58 +870,233 @@ def _model_params(*, signatures, qdnn_params, host_params, gen_params,
         strict=brownout is not None or intermittent is not None,
         intermittent=intermittent,
         reserve_uj=brownout.off_uj if brownout is not None else 0.0)
+    same = []
+    tree_map(lambda a, b: same.append(a is b),
+             dict(zip(_WEIGHTS, given)), {k: params[k] for k in _WEIGHTS})
+    return params, all(same)
 
 
-def _run_slots(xs_w, harvest, exo_alive, carry: FleetCarry, slot_noise, *,
-               params: dict, tasks, task, brownout, intermittent, tel_spec,
-               active: frozenset, slot0: int, node_block: int | None):
-    """The slot loop over the nodes one device holds: ``xs_w`` the (S, T, C)
-    shared stream or (S, N, T, C) streams, ``harvest`` and ``exo_alive``
-    (N, S), ``carry`` the state entering the first slot and
-    ``slot_noise(si, keys)`` slot ``si``'s (N, ...) noise and the nodes'
-    advanced keys (None without them).  Returns the stacked (S, N)
-    traces, ``preds`` included, and the carry after the last slot."""
+class _SlotInputs(NamedTuple):
+    """What the slot loop reads besides the carry: in slot ``si`` the
+    windows ``windows[si]`` (a shared stream's (T, C), or (N, T, C)),
+    ``harvest[:, si]``, the exogenous ``alive[:, si]`` and the pre-drawn
+    ``noise`` (each ``v[si]``; None for another source); in every slot the
+    quantized D2 weights ``qp`` and the task lane's (N,) ``scale`` and
+    ``tasks`` (None without the lane)."""
+
+    windows: torch.Tensor
+    harvest: torch.Tensor
+    alive: torch.Tensor
+    noise: dict | None
+    qp: dict
+    scale: torch.Tensor | None
+    tasks: torch.Tensor | None
+
+
+# the weights a captured slot reads where they lie: its key holds their
+# addresses, and an in-place update of them is read by the replay
+_WEIGHTS = ("signatures", "host_params", "gen_params", "aac_table")
+# captures, graph replays (one a slot) and slots run eagerly
+_GRAPH_COUNTS = {"captures": 0, "replays": 0, "eager_slots": 0}
+# the captured slot loops by key, least recently used first
+_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+_GRAPHS_KEPT = 8
+
+
+def fleet_graph_counts() -> dict:
+    """How the fleet's slot loop ran in this process: ``captures`` (keys
+    whose slots were captured as CUDA graphs), ``replays`` (graph
+    launches, one a slot) and ``eager_slots`` (slots run eagerly: on a
+    device that is not CUDA, on the paths that stay eager, and in the call
+    that precedes each capture)."""
+    return dict(_GRAPH_COUNTS)
+
+
+def _slot(si: int, inp: _SlotInputs, carry: FleetCarry, *, draw, blocks,
+          host_idx, params: dict, slot0: int, lanes: dict):
+    """Slot ``si`` of the loop: the noise, every node block's
+    :func:`_slot_body`, then :func:`_slot_carry`; returns ``(carry,
+    out_t)``.  ``draw()`` is a generator's draw (None for the other
+    sources); ``lanes`` the keywords of :func:`_slot_carry`."""
+    n = inp.harvest.shape[0]
+    with obs_trace.span("fleet.noise"):
+        win_t = inp.windows[si]
+        if win_t.ndim == 2:                                 # a shared stream
+            win_t = win_t.expand((n,) + tuple(win_t.shape)).contiguous()
+        if inp.noise is not None:
+            nz, next_keys = {k: v[si] for k, v in inp.noise.items()}, None
+        elif carry.keys is not None:
+            nz, next_keys = draw_slot_noise_keyed(carry.keys,
+                                                  *win_t.shape[-2:])
+        else:
+            nz, next_keys = draw(), None
+    harv_t = inp.harvest[:, si]
+    body = dict(params, qp=inp.qp)
+    parts = [_slot_body(
+        tree_map(lambda x: x[sl], carry.node),
+        tree_map(lambda x: x[sl], carry.intermittent), win_t[sl],
+        harv_t[sl], {k: v[sl] for k, v in nz.items()}, slot0 + si,
+        None if inp.scale is None else inp.scale[sl], idx, **body)
+        for sl, idx in zip(blocks, host_idx)]
+    with obs_trace.span("fleet.carry"):
+        return _slot_carry(carry, parts, next_keys, harv_t,
+                           inp.alive[:, si], tasks=inp.tasks, **lanes)
+
+
+def _write_row(traces: dict, si: int, out_t: dict) -> None:
+    """Slot ``si``'s emitted traces into row ``si`` of the (S, N, ...)
+    ``traces``."""
+    copy_leaves({k: traces[k][si] for k in out_t}, out_t)
+
+
+def _run_eager(step, inp: _SlotInputs, carry: FleetCarry, slot0: int):
+    """The slot loop run eagerly, ``step`` (:func:`_slot`) slot by slot:
+    the (S, N, ...) traces written row by row, ``preds`` included, and the
+    carry after the last slot."""
+    s = inp.harvest.shape[1]
+    inp = inp._replace(windows=inp.windows.contiguous())
+    traces = None
+    for si in range(s):
+        with obs_trace.span("fleet.slot", {"slot": slot0 + si}):
+            carry, out_t = step(si, inp, carry)
+            if traces is None:
+                traces = {k: v.new_empty((s,) + tuple(v.shape))
+                          for k, v in out_t.items()}
+            _write_row(traces, si, out_t)
+    with obs_trace.span("fleet.aggregates"):
+        traces["preds"] = torch.argmax(traces["logits"], dim=-1)
+    return traces, carry
+
+
+def _wide(inp: _SlotInputs) -> _SlotInputs:
+    """``inp`` with its windows as (S, N, T, C): a shared stream expanded
+    over the nodes (a view)."""
+    w = inp.windows
+    if w.ndim == 4:
+        return inp
+    n = inp.harvest.shape[0]
+    return inp._replace(windows=w[:, None].expand(
+        (w.shape[0], n) + tuple(w.shape[1:])))
+
+
+class _FleetGraphs:
+    """The CUDA graphs of one fleet key: one a slot position of the call,
+    captured in order on one private memory pool and replayed in that
+    order.  Graph ``si`` reads its slot from the input buffers (the windows
+    as (S, N, T, C)), writes row ``si`` of the (S, N, ...) trace buffers
+    and then the carry back into the carry buffers; the last also takes
+    ``preds``.  The caller's inputs are copied into the buffers and it
+    gets clones, so every result it holds stays its own."""
+
+    def __init__(self, step, inp: _SlotInputs, carry: FleetCarry,
+                 traces: dict, stream) -> None:
+        def buffer(x):
+            return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+        self.inp = tree_map(buffer, _wide(inp))
+        self.carry = tree_map(buffer, carry)
+        self.traces = {k: buffer(v) for k, v in traces.items()
+                       if k != "preds"}
+        pool = torch.cuda.graph_pool_handle()
+        s = inp.harvest.shape[1]
+        self.graphs = []
+        for si in range(s):
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, pool=pool, stream=stream):
+                new, out_t = step(si, self.inp, self.carry)
+                # the row first: it may hold the carry's entering flags
+                _write_row(self.traces, si, out_t)
+                copy_leaves(self.carry, new)
+                if si == s - 1:
+                    self.preds = torch.argmax(self.traces["logits"], dim=-1)
+            self.graphs.append(g)
+
+    def run(self, inp: _SlotInputs, carry: FleetCarry, slot0: int):
+        copy_leaves({"inp": self.inp, "carry": self.carry},
+                    {"inp": _wide(inp), "carry": carry})
+        for si, g in enumerate(self.graphs):
+            with obs_trace.span("fleet.slot", {"slot": slot0 + si}):
+                g.replay()
+        _GRAPH_COUNTS["replays"] += len(self.graphs)
+        with obs_trace.span("fleet.aggregates"):
+            out = clone({"traces": dict(self.traces, preds=self.preds),
+                         "carry": self.carry})
+        return out["traces"], out["carry"]
+
+
+def _run_slots(windows, harvest, exo_alive, carry: FleetCarry, *, noise,
+               draw, params: dict, own_weights: bool, tasks, task, brownout,
+               intermittent, tel_spec, active: frozenset, slot0: int,
+               node_block: int | None):
+    """The slot loop over the nodes one device holds: ``windows`` the
+    (S, T, C) shared stream or (S, N, T, C) streams (any strides),
+    ``harvest`` and ``exo_alive`` (N, S), ``carry`` the state entering the
+    first slot; the noise pre-drawn (``noise``, (S, N, ...)), from the
+    carried keys, or from a generator (``draw()``, one slot's batch).
+    Returns the (S, N) traces, ``preds`` included, and the carry after the
+    last slot.
+
+    On a CUDA device the first call of a key runs the loop eagerly on a
+    side stream, then captures it (:class:`_FleetGraphs`); later calls
+    replay the graphs.  The key is the device, the node block, the noise
+    source, the shapes and dtypes of the inputs and the carry, the
+    address, shape, dtype and strides of every weight :data:`_WEIGHTS`
+    names, the ladder's knobs, the lanes and their configs, and the TF32
+    switches.  The loop runs eagerly elsewhere, inside a capture of the
+    caller's, and wherever a capture would bake in a value of one call: a
+    generator's draws, per-task host weights (their node indices), the
+    intermittent lane (its global slot index), weights copied to reach
+    the device (a new address each call)."""
     n, s = harvest.shape
-    t, c = xs_w.shape[-2:]
-    shared_stream = xs_w.ndim == 3
     dev = harvest.device
     block = n if node_block is None else max(1, min(node_block, n))
     blocks = [slice(lo, lo + block) for lo in range(0, n, block)]
-    # the task lane's per-block constants, made once per run
+    # the task lane's per-node scale, made once per run
     scale = (None if task is None else torch.tensor(
         task.cost_scale, dtype=torch.float32, device=dev)[tasks.long()])
     host_idx = [None] * len(blocks)
     if task is not None and task.per_task_host:
         host_idx = [[torch.nonzero(tasks[sl] == k).flatten()
                      for k in range(task.n_tasks)] for sl in blocks]
-    keep_fields = [ln.carry_field for ln in FLEET_LANES if ln.freeze == "keep"]
-
-    per_slot = []
-    for si in range(s):
-        with obs_trace.span("fleet.slot", {"slot": slot0 + si}):
-            with obs_trace.span("fleet.noise"):
-                win_t = (xs_w[si].expand(n, t, c).contiguous()
-                         if shared_stream else xs_w[si])
-                nz, next_keys = slot_noise(si, carry.keys)
-            harv_t = harvest[:, si]
-            parts = [_slot_body(
-                _tree_map(lambda x: x[sl], carry.node),
-                _tree_map(lambda x: x[sl], carry.intermittent), win_t[sl],
-                harv_t[sl], {k: v[sl] for k, v in nz.items()}, slot0 + si,
-                None if scale is None else scale[sl], idx, **params)
-                for sl, idx in zip(blocks, host_idx)]
-            with obs_trace.span("fleet.carry"):
-                carry, out_t = _slot_carry(
-                    carry, parts, next_keys, harv_t, exo_alive[:, si],
-                    brownout=brownout, intermittent=intermittent,
-                    tel_spec=tel_spec, active=active, tasks=tasks,
-                    keep_fields=keep_fields)
-            per_slot.append(out_t)
-    with obs_trace.span("fleet.aggregates"):
-        traces = {k: torch.stack([p[k] for p in per_slot])
-                  for k in per_slot[0]}
-        traces["preds"] = torch.argmax(traces["logits"], dim=-1)
-    return traces, carry
+    lanes = dict(brownout=brownout, intermittent=intermittent,
+                 tel_spec=tel_spec, active=active,
+                 keep_fields=[ln.carry_field for ln in FLEET_LANES
+                              if ln.freeze == "keep"])
+    inp = _SlotInputs(windows, harvest, exo_alive, noise, params["qp"], scale,
+                      tasks)
+    step = functools.partial(_slot, draw=draw, blocks=blocks,
+                             host_idx=host_idx, params=params, slot0=slot0,
+                             lanes=lanes)
+    if (dev.type != "cuda" or torch.cuda.is_current_stream_capturing()
+            or draw is not None or host_idx[0] is not None
+            or intermittent is not None or not own_weights):
+        _GRAPH_COUNTS["eager_slots"] += s
+        return _run_eager(step, inp, carry, slot0)
+    # the configs by value: one read from JSON may hold a list
+    knobs = repr(([(k, v) for k, v in params.items()
+                   if k not in _WEIGHTS + ("qp", "qa")], brownout, task))
+    key = (dev, block, "noise" if noise is not None else "keys",
+           layout(inp, carry),
+           layout(*(params[k] for k in _WEIGHTS), addresses=True), knobs,
+           tel_spec, active, torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    graphs = _GRAPHS.get(key)
+    if graphs is not None:
+        _GRAPHS.move_to_end(key)
+        return graphs.run(inp, carry, slot0)
+    with torch.cuda.device(dev):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            result = _run_eager(step, inp, carry, slot0)
+        _GRAPH_COUNTS["eager_slots"] += s
+        _GRAPHS[key] = _FleetGraphs(step, inp, carry, result[0], side)
+        torch.cuda.current_stream().wait_stream(side)
+    compile_event("serving.fleet_graph", key)
+    _GRAPH_COUNTS["captures"] += 1
+    while len(_GRAPHS) > _GRAPHS_KEPT:
+        _GRAPHS.popitem(last=False)
+    return result
 
 
 def _slot_carry(carry: FleetCarry, parts: list, next_keys, harv_t, alive_t,
@@ -940,9 +1111,9 @@ def _slot_carry(carry: FleetCarry, parts: list, next_keys, harv_t, alive_t,
     # a node runs when its trace says so and its supercap allows
     alive_eff = alive_t & ~browned if brownout is not None else alive_t
     new = carry._replace(
-        node=_tree_map(lambda *xs: torch.cat(xs), *[p[0] for p in parts]),
+        node=tree_map(lambda *xs: torch.cat(xs), *[p[0] for p in parts]),
         keys=next_keys,
-        intermittent=_tree_map(lambda *xs: torch.cat(xs),
+        intermittent=tree_map(lambda *xs: torch.cat(xs),
                                *[p[1] for p in parts]))
     trace = {k: torch.cat([p[2][k] for p in parts]) for k in parts[0][2]}
 
@@ -951,7 +1122,7 @@ def _slot_carry(carry: FleetCarry, parts: list, next_keys, harv_t, alive_t,
         a = alive_eff.reshape((n,) + (1,) * (new_x.ndim - 1))
         return torch.where(a, new_x, old_x)
 
-    new = new._replace(**{f: _tree_map(keep, getattr(new, f),
+    new = new._replace(**{f: tree_map(keep, getattr(new, f),
                                        getattr(carry, f))
                           for f in keep_fields})
     node = new.node
@@ -1171,8 +1342,7 @@ def seeker_fleet_simulate_sharded(
                 if shared_stream:
                     xs_w = to_device(win, dev, torch.float32).contiguous()
                 else:
-                    xs_w = rows(win, dtype=torch.float32).transpose(
-                        0, 1).contiguous()
+                    xs_w = rows(win, dtype=torch.float32).transpose(0, 1)
                 harv = rows(harvest, dtype=torch.float32)
                 alive_g = _check_alive(alive, n, s)
                 # padding nodes are permanently dead: their ladder never runs
@@ -1225,34 +1395,28 @@ def seeker_fleet_simulate_sharded(
                     it = (intermittent_fleet_init(hi - lo, har_cfg, dev)
                           if intermittent_state0 is None
                           else rows(intermittent_state0, fill=it_fill))
-                keys0 = None
+                keys0 = draw = None
                 if noise is not None:
-                    tile_noise = _check_noise(
+                    noise = _check_noise(
                         noise, s, n, t, c,
                         functools.partial(rows, dtype=torch.float32, dim=1))
-
-                    def slot_noise(si, keys):
-                        return {k: v[si] for k, v in tile_noise.items()}, None
                 elif node_keys is not None:
                     # this tile's keys; padding nodes get inert zero keys
                     keys0 = _check_keys(node_keys, n, functools.partial(
                         rows, dtype=torch.int64))
-
-                    def slot_noise(si, keys):
-                        return draw_slot_noise_keyed(keys, t, c)
                 else:
                     generator = _check_generator(generator, dev)
 
-                    def slot_noise(si, keys):
+                    def draw():
                         # the whole fleet's batch, from the same stream on
                         # every rank
                         return {k: rows(v) for k, v in draw_slot_noise(
-                            generator, n, t, c).items()}, None
+                            generator, n, t, c).items()}
             carry = FleetCarry(
                 node=state, keys=keys0, intermittent=it, brownout=browned0,
                 telemetry=(None if tel_spec is None
                            else metrics_init(tel_spec, dev)))
-            params = _model_params(
+            params, own_weights = _model_params(
                 signatures=signatures, qdnn_params=qdnn_params,
                 host_params=host_params, gen_params=gen_params,
                 aac_table=aac_table, costs=costs, quant_bits=quant_bits,
@@ -1261,10 +1425,10 @@ def seeker_fleet_simulate_sharded(
                 brownout=brownout, intermittent=intermittent,
                 aux_params=aux_params, task=task, dev=dev)
         traces, carry = _run_slots(
-            xs_w, harv, exo_alive, carry, slot_noise, params=params,
-            tasks=tasks_t, task=task, brownout=brownout,
-            intermittent=intermittent, tel_spec=tel_spec, active=active,
-            slot0=slot0, node_block=node_block)
+            xs_w, harv, exo_alive, carry, noise=noise, draw=draw,
+            params=params, own_weights=own_weights, tasks=tasks_t, task=task,
+            brownout=brownout, intermittent=intermittent, tel_spec=tel_spec,
+            active=active, slot0=slot0, node_block=node_block)
         with obs_trace.span("fleet.aggregates"):
             aggs = _fleet_aggregates(
                 traces, exo_alive.T, labels_t, per_node_labels, intermittent,
