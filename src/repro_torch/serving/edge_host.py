@@ -916,14 +916,12 @@ def fleet_serve_step(windows, *, host_params, har_cfg: HARConfig, mesh=None,
                 seed=seed, noise_fn=noise_fn, dev=dev)
 
         with obs_trace.span("host.encode"):
-            if shard is None:
-                payload = _edge_encode_coresets(
-                    to_device(windows, dev, torch.float32), k)
-            else:
-                _, lo, hi = shard.bounds(n)
-                payload = WirePayload(*(
-                    _gather_nodes(f, shard, n) for f in _edge_encode_coresets(
-                        _tile(windows, n, lo, hi, dev, torch.float32), k)))
+            _, lo, hi = (0, 0, n) if shard is None else shard.bounds(n)
+            payload = _edge_encode_coresets(
+                _tile(windows, n, lo, hi, dev, torch.float32), k)
+            if shard is not None:
+                payload = WirePayload(*(_gather_nodes(f, shard, n)
+                                        for f in payload))
             n_tx = n if alive is None else int(alive.sum())  # frames sent
             out = {
                 "wire_bytes": n_tx * wire_payload_nbytes(k, c),

@@ -81,11 +81,14 @@ long run.
 :func:`seeker_fleet_simulate_sharded` splits the node axis over the ranks
 of a ``torch.distributed`` device mesh (:mod:`repro_torch.sharding`): each
 rank runs the same slot loop on its node tile, and only the aggregates,
-the telemetry lanes and, after the last slot, the traces cross ranks.
+the telemetry lanes and, after the last slot, the traces cross ranks.  Both
+engines run one body, :func:`_fleet_engine`, of which the single-device
+engine is the one-tile case.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 from typing import NamedTuple
 
@@ -377,14 +380,6 @@ def _labels_layout(labels, s: int, n: int, shared_stream: bool):
                      f"{tuple(labels.shape)}; {accepted}.")
 
 
-def _resolve_labels(labels, s: int, n: int, shared_stream: bool, dev):
-    """:func:`_labels_layout`, the labels on ``dev`` as int64."""
-    labels, per_node = _labels_layout(labels, s, n, shared_stream)
-    if labels is None:
-        return None, False
-    return to_device(labels, dev, torch.int64), per_node
-
-
 def _check_alive(alive, n: int, s: int):
     """The (N, S) churn trace as given, shape-checked (``None`` stays)."""
     if alive is None:
@@ -394,14 +389,6 @@ def _check_alive(alive, n: int, s: int):
         raise ValueError(f"alive must be (N, S)=({n}, {s}) bool, got "
                          f"{tuple(alive.shape)}")
     return alive
-
-
-def _resolve_alive(alive, n: int, s: int, dev) -> torch.Tensor:
-    """(N, S) bool churn trace; ``None`` is the always-present fleet."""
-    alive = _check_alive(alive, n, s)
-    if alive is None:
-        return torch.ones((n, s), dtype=torch.bool, device=dev)
-    return to_device(alive, dev, torch.bool)
 
 
 def _resolve_brownout0(brownout_state0, state0: SeekerNodeState,
@@ -732,82 +719,19 @@ def seeker_fleet_simulate(windows, harvest, *, signatures, qdnn_params,
     ``completed_by_task`` and ``deadline_miss_by_task`` (with labels
     ``correct_by_task`` and ``accuracy_by_task``).
     """
-    n, s = tuple(_as_array(harvest).shape)
-    with obs_trace.span("fleet.step", {"nodes": n, "slots": s}):
-        with obs_trace.span("fleet.prepare"):
-            dev = resolve_device(device)
-            _check_sources(generator, noise, node_keys)
-            costs = costs or EnergyCosts()
-            harvest = to_device(harvest, dev, torch.float32)
-            windows = to_device(windows, dev, torch.float32)
-            shared_stream = _check_windows(tuple(windows.shape), n, s,
-                                           har_cfg)
-            t, c = windows.shape[-2:]
-            xs_w = (windows.contiguous() if shared_stream      # (S, T, C)
-                    else windows.transpose(0, 1))               # (S, N, T, C)
-            labels, per_node_labels = _resolve_labels(labels, s, n,
-                                                      shared_stream, dev)
-            exo_alive = _resolve_alive(alive, n, s, dev)
-            if state0 is None:
-                state = fleet_node_init(n, predictor_window, initial_uj, dev)
-            else:
-                state = to_device(state0, dev)
-                if state.stored_uj.shape[0] != n:
-                    raise ValueError(f"state0 is stacked for "
-                                     f"{state.stored_uj.shape[0]} nodes, "
-                                     f"fleet has {n}")
-            _validate_intermittent_args(intermittent, intermittent_state0,
-                                        aux_params, n)
-            tasks, task = _resolve_tasks(tasks, task, n, dev)
-            host_params = _resolve_task_host(task, host_params)
-            tel_spec = _resolve_telemetry(telemetry, intermittent, task)
-            active = _active_lanes(intermittent, task, brownout)
-            it = None
-            if intermittent is not None:
-                it = (intermittent_fleet_init(n, har_cfg, dev)
-                      if intermittent_state0 is None
-                      else to_device(intermittent_state0, dev))
-            keys0 = draw = None
-            if noise is not None:
-                noise = _check_noise(
-                    noise, s, n, t, c,
-                    lambda v: to_device(v, dev, torch.float32))
-            elif node_keys is not None:
-                keys0 = _check_keys(node_keys, n,
-                                    lambda v: to_device(v, dev, torch.int64))
-            else:
-                draw = functools.partial(
-                    draw_slot_noise, _check_generator(generator, dev), n, t, c)
-            carry = FleetCarry(
-                node=state, keys=keys0, intermittent=it,
-                # the run counts a delta from zero; telemetry_state0 is
-                # merged after
-                telemetry=(None if tel_spec is None
-                           else metrics_init(tel_spec, dev)),
-                brownout=_resolve_brownout0(brownout_state0, state, brownout,
-                                            n))
-            params, own_weights = _model_params(
-                signatures=signatures, qdnn_params=qdnn_params,
-                host_params=host_params, gen_params=gen_params,
-                aac_table=aac_table, costs=costs, quant_bits=quant_bits,
-                k_max=k_max, m_samples=m_samples,
-                corr_threshold=corr_threshold, har_cfg=har_cfg,
-                brownout=brownout, intermittent=intermittent,
-                aux_params=aux_params, task=task, dev=dev)
-        traces, carry = _run_slots(
-            xs_w, harvest, exo_alive, carry, noise=noise, draw=draw,
-            params=params, own_weights=own_weights, tasks=tasks, task=task,
-            brownout=brownout, intermittent=intermittent, tel_spec=tel_spec,
-            active=active, slot0=slot0, node_block=node_block)
-        with obs_trace.span("fleet.aggregates"):
-            aggs = _fleet_aggregates(traces, exo_alive.T, labels,
-                                     per_node_labels, intermittent, slot0,
-                                     tasks, task)
-            return _fleet_result(traces, aggs, carry, active=active,
-                                 intermittent=intermittent, tel_spec=tel_spec,
-                                 telemetry_state0=telemetry_state0,
-                                 scored=labels is not None, tasks=tasks,
-                                 task=task, t=t, c=c)
+    return _fleet_engine(
+        None, windows, harvest, signatures=signatures,
+        qdnn_params=qdnn_params, host_params=host_params,
+        gen_params=gen_params, har_cfg=har_cfg, aac_table=aac_table,
+        costs=costs, generator=generator, noise=noise, node_keys=node_keys,
+        quant_bits=quant_bits, k_max=k_max, m_samples=m_samples,
+        corr_threshold=corr_threshold, predictor_window=predictor_window,
+        initial_uj=initial_uj, state0=state0, labels=labels, alive=alive,
+        brownout=brownout, brownout_state0=brownout_state0,
+        intermittent=intermittent, intermittent_state0=intermittent_state0,
+        aux_params=aux_params, slot0=slot0, telemetry=telemetry,
+        telemetry_state0=telemetry_state0, tasks=tasks, task=task,
+        node_block=node_block, device=device)
 
 
 def _check_windows(shape: tuple, n: int, s: int, har_cfg: HARConfig) -> bool:
@@ -1205,15 +1129,16 @@ def _tile(x, n: int, lo: int, hi: int, dev, dtype=None, dim: int = 0,
     """Rows ``[lo, hi)`` of the padded fleet along ``dim`` of ``x`` (a
     tensor, numpy array or NamedTuple of them with ``n`` rows there), moved
     to ``dev``: the real rows, then the padding rows of ``fill`` (same
-    structure, ``hi - max(lo, n)`` rows; zeros when ``None``)."""
+    structure, ``hi - max(lo, n)`` rows; zeros when ``None``).  The whole
+    fleet ``[0, n)`` is ``x`` itself, moved."""
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*(_tile(v, n, lo, hi, dev, dtype, dim,
                                None if fill is None else getattr(fill, f))
                          for f, v in zip(x._fields, x)))
-    x = _as_array(x)
-    real = to_device(x[(slice(None),) * dim + (slice(min(lo, n),
-                                                     min(hi, n)),)],
-                     dev, dtype)
+    if (lo, hi) != (0, n):
+        x = _as_array(x)[(slice(None),) * dim + (slice(min(lo, n),
+                                                        min(hi, n)),)]
+    real = to_device(x, dev, dtype)
     short = (hi - lo) - real.shape[dim]
     if not short:
         return real
@@ -1254,16 +1179,160 @@ def _reduce_aggregates(aggs: dict, shard: NodeShard) -> dict:
     return out
 
 
-def _default_mesh(dev: torch.device):
-    """The reference's default: a 1-D ("data",) mesh over every rank of the
+def _mesh_shard(mesh, dev: torch.device) -> NodeShard:
+    """This rank's :class:`NodeShard` of ``mesh``; ``None`` is the
+    reference's default, a 1-D ("data",) mesh over every rank of the
     initialized default group."""
-    import torch.distributed as dist
-    if not dist.is_initialized():
-        raise RuntimeError(
-            "the sharded fleet needs an initialized process group (or a "
-            "mesh): call torch.distributed.init_process_group first")
-    return make_mesh((dist.get_world_size(),), ("data",),
-                     device_type=dev.type)
+    if mesh is None:
+        import torch.distributed as dist
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "the sharded fleet needs an initialized process group (or a "
+                "mesh): call torch.distributed.init_process_group first")
+        mesh = make_mesh((dist.get_world_size(),), ("data",),
+                         device_type=dev.type)
+    return node_shard(mesh)
+
+
+def _fleet_engine(
+        shard_of, windows, harvest, *, signatures, qdnn_params, host_params,
+        gen_params, har_cfg: HARConfig, aac_table, costs, generator, noise,
+        node_keys, quant_bits, k_max, m_samples, corr_threshold,
+        predictor_window, initial_uj, state0, labels, alive, brownout,
+        brownout_state0, intermittent, intermittent_state0, aux_params, slot0,
+        telemetry, telemetry_state0, tasks, task, node_block, device):
+    """The body of both engines.  Every input is checked and resolved once
+    for the whole fleet, then cut to the rows ``[lo, hi)`` this device
+    runs (:func:`_tile`).  With ``shard_of`` None that is the whole fleet
+    ``[0, n)``: no padding and no collectives.  Else ``shard_of(device)``
+    is this rank's :class:`NodeShard`, and the rows its tile of the padded
+    fleet (``fleet.tile``), whose counts, traces and carry are summed and
+    gathered after the last slot (``fleet.collect``)."""
+    n, s = tuple(_as_array(harvest).shape)
+    with obs_trace.span("fleet.step", {"nodes": n, "slots": s}):
+        with obs_trace.span("fleet.prepare"):
+            dev = resolve_device(device)
+            _check_sources(generator, noise, node_keys)
+            shard = None if shard_of is None else shard_of(dev)
+            costs = costs or EnergyCosts()
+            win = _as_array(windows)
+            shared_stream = _check_windows(tuple(win.shape), n, s, har_cfg)
+            t, c = win.shape[-2:]
+            labels, per_node_labels = _labels_layout(labels, s, n,
+                                                     shared_stream)
+            alive = _check_alive(alive, n, s)
+            if state0 is None:
+                state0 = fleet_node_init(n, predictor_window, initial_uj, dev)
+            else:
+                state0 = to_device(state0, dev)
+                lead = state0.stored_uj.shape[0]
+                if lead != n:
+                    raise ValueError(f"state0 is stacked for {lead} nodes, "
+                                     f"fleet has {n}")
+            _validate_intermittent_args(intermittent, intermittent_state0,
+                                        aux_params, n)
+            tasks, task = _resolve_tasks(tasks, task, n, dev)
+            host_params = _resolve_task_host(task, host_params)
+            tel_spec = _resolve_telemetry(telemetry, intermittent, task)
+            active = _active_lanes(intermittent, task, brownout)
+            pad, lo, hi = (0, 0, n) if shard is None else shard.bounds(n)
+            # padding rows of this tile: inert nodes, permanently dead
+            short = max(hi - max(lo, n), 0)
+            with (contextlib.nullcontext() if shard is None
+                  else obs_trace.span("fleet.tile")):
+                rows = functools.partial(_tile, n=n, lo=lo, hi=hi, dev=dev)
+                xs_w = (to_device(win, dev, torch.float32).contiguous()
+                        if shared_stream                      # (S, T, C)
+                        else rows(win, dtype=torch.float32).transpose(0, 1))
+                harv = rows(harvest, dtype=torch.float32)
+                exo_alive = rows(torch.ones((n, s), dtype=torch.bool,
+                                            device=dev)
+                                 if alive is None else alive,
+                                 dtype=torch.bool)
+                if labels is not None:
+                    labels = (rows(labels, dtype=torch.int64, dim=1)
+                              if per_node_labels
+                              else to_device(labels, dev, torch.int64))
+                state = rows(state0, fill=fleet_node_init(
+                    short, predictor_window, initial_uj, dev) if short
+                    else None)
+                tasks_t = None if tasks is None else rows(tasks)
+                it = None
+                if intermittent is not None:
+                    # padding rows zero: an idle lane
+                    it = (intermittent_fleet_init(hi - lo, har_cfg, dev)
+                          if intermittent_state0 is None
+                          else rows(intermittent_state0))
+                keys0 = draw = None
+                if noise is not None:
+                    noise = _check_noise(
+                        noise, s, n, t, c,
+                        functools.partial(rows, dtype=torch.float32, dim=1))
+                elif node_keys is not None:
+                    # padding nodes get inert zero keys
+                    keys0 = _check_keys(node_keys, n, functools.partial(
+                        rows, dtype=torch.int64))
+                else:
+                    draw = functools.partial(
+                        draw_slot_noise, _check_generator(generator, dev), n,
+                        t, c)
+                    if shard is not None:
+                        def draw(whole=draw):
+                            # the whole fleet's batch, from the same stream
+                            # on every rank
+                            return {k: rows(v) for k, v in whole().items()}
+                # padding nodes are held awake
+                browned0 = rows(_resolve_brownout0(brownout_state0, state0,
+                                                   brownout, n))
+            carry = FleetCarry(
+                node=state, keys=keys0, intermittent=it, brownout=browned0,
+                # the run counts a delta from zero; telemetry_state0 is
+                # merged after
+                telemetry=(None if tel_spec is None
+                           else metrics_init(tel_spec, dev)))
+            params, own_weights = _model_params(
+                signatures=signatures, qdnn_params=qdnn_params,
+                host_params=host_params, gen_params=gen_params,
+                aac_table=aac_table, costs=costs, quant_bits=quant_bits,
+                k_max=k_max, m_samples=m_samples,
+                corr_threshold=corr_threshold, har_cfg=har_cfg,
+                brownout=brownout, intermittent=intermittent,
+                aux_params=aux_params, task=task, dev=dev)
+        traces, carry = _run_slots(
+            xs_w, harv, exo_alive, carry, noise=noise, draw=draw,
+            params=params, own_weights=own_weights, tasks=tasks_t, task=task,
+            brownout=brownout, intermittent=intermittent, tel_spec=tel_spec,
+            active=active, slot0=slot0, node_block=node_block)
+        with obs_trace.span("fleet.aggregates"):
+            aggs = _fleet_aggregates(
+                traces, exo_alive.T, labels, per_node_labels, intermittent,
+                slot0, tasks_t, task,
+                mask=(torch.arange(lo, hi, device=dev) < n) if short else None)
+            if shard is not None:
+                # the collectives: every rank's counts summed, every tile's
+                # traces and carry gathered
+                with obs_trace.span("fleet.collect"):
+                    aggs = _reduce_aggregates(aggs, shard)
+                    traces = {k: _gather_nodes(traces[k], shard, n, dim=1)
+                              for k in fleet_trace_keys(active)
+                              if k != "preds"}
+                    carry = FleetCarry(
+                        node=_gather_nodes(carry.node, shard, n),
+                        keys=_gather_nodes(carry.keys, shard, n),
+                        brownout=_gather_nodes(carry.brownout, shard, n),
+                        intermittent=_gather_nodes(carry.intermittent, shard,
+                                                   n),
+                        telemetry=None if tel_spec is None else metrics_psum(
+                            tel_spec, carry.telemetry, shard.group))
+                traces["preds"] = torch.argmax(traces["logits"], dim=-1)
+            out = _fleet_result(traces, aggs, carry, active=active,
+                                intermittent=intermittent, tel_spec=tel_spec,
+                                telemetry_state0=telemetry_state0,
+                                scored=labels is not None, tasks=tasks,
+                                task=task, t=t, c=c)
+            if shard is not None:
+                out.update(padded_nodes=pad, node_axes=shard.axes)
+            return out
 
 
 def seeker_fleet_simulate_sharded(
@@ -1322,138 +1391,19 @@ def seeker_fleet_simulate_sharded(
     ``padded_nodes`` (the inert nodes added) and ``node_axes`` (the mesh
     dims the node axis split over).
     """
-    n, s = tuple(_as_array(harvest).shape)
-    with obs_trace.span("fleet.step", {"nodes": n, "slots": s}):
-        with obs_trace.span("fleet.prepare"):
-            dev = resolve_device(device)
-            _check_sources(generator, noise, node_keys)
-            shard = node_shard(mesh if mesh is not None
-                               else _default_mesh(dev))
-            costs = costs or EnergyCosts()
-            win = _as_array(windows)
-            shared_stream = _check_windows(tuple(win.shape), n, s, har_cfg)
-            t, c = win.shape[-2:]
-            # this rank's tile of every per-node input and of the carried
-            # whole-fleet state
-            with obs_trace.span("fleet.tile"):
-                pad, lo, hi = shard.bounds(n)
-                rows = functools.partial(_tile, n=n, lo=lo, hi=hi, dev=dev)
-                mask = torch.arange(lo, hi, device=dev) < n
-                if shared_stream:
-                    xs_w = to_device(win, dev, torch.float32).contiguous()
-                else:
-                    xs_w = rows(win, dtype=torch.float32).transpose(0, 1)
-                harv = rows(harvest, dtype=torch.float32)
-                alive_g = _check_alive(alive, n, s)
-                # padding nodes are permanently dead: their ladder never runs
-                exo_alive = (mask[:, None].expand(hi - lo, s).clone()
-                             if alive_g is None
-                             else rows(alive_g, dtype=torch.bool))
-                labels_g, per_node_labels = _labels_layout(labels, s, n,
-                                                           shared_stream)
-                if labels_g is None:
-                    labels_t = None
-                elif per_node_labels:
-                    labels_t = rows(labels_g, dtype=torch.int64, dim=1)
-                else:
-                    labels_t = to_device(labels_g, dev, torch.int64)
-                filler = fleet_node_init(max(hi - max(lo, n), 0),
-                                         predictor_window, initial_uj, dev)
-                if state0 is None:
-                    state = fleet_node_init(hi - lo, predictor_window,
-                                            initial_uj, dev)
-                else:
-                    lead = _as_array(state0.stored_uj).shape[0]
-                    if lead != n:
-                        raise ValueError(f"state0 is stacked for {lead} "
-                                         f"nodes, fleet has {n}")
-                    state = rows(state0, fill=filler)
-                if brownout_state0 is not None:
-                    b0 = _as_array(brownout_state0)
-                    if tuple(b0.shape) != (n,):
-                        raise ValueError(f"brownout_state0 must be "
-                                         f"(N,)=({n},) bool, got "
-                                         f"{tuple(b0.shape)}")
-                    browned0 = rows(b0, dtype=torch.bool)
-                else:
-                    # boot-time hysteresis on the real nodes; padding held
-                    # awake
-                    browned0 = _resolve_brownout0(None, state, brownout,
-                                                  hi - lo) & mask
-                _validate_intermittent_args(intermittent, intermittent_state0,
-                                            aux_params, n)
-                tasks, task = _resolve_tasks(tasks, task, n, dev)
-                host_params = _resolve_task_host(task, host_params)
-                # padding: task 0
-                tasks_t = None if tasks is None else rows(tasks)
-                tel_spec = _resolve_telemetry(telemetry, intermittent, task)
-                active = _active_lanes(intermittent, task, brownout)
-                it = None
-                if intermittent is not None:
-                    it_fill = intermittent_fleet_init(
-                        filler.stored_uj.shape[0], har_cfg, dev)
-                    it = (intermittent_fleet_init(hi - lo, har_cfg, dev)
-                          if intermittent_state0 is None
-                          else rows(intermittent_state0, fill=it_fill))
-                keys0 = draw = None
-                if noise is not None:
-                    noise = _check_noise(
-                        noise, s, n, t, c,
-                        functools.partial(rows, dtype=torch.float32, dim=1))
-                elif node_keys is not None:
-                    # this tile's keys; padding nodes get inert zero keys
-                    keys0 = _check_keys(node_keys, n, functools.partial(
-                        rows, dtype=torch.int64))
-                else:
-                    generator = _check_generator(generator, dev)
-
-                    def draw():
-                        # the whole fleet's batch, from the same stream on
-                        # every rank
-                        return {k: rows(v) for k, v in draw_slot_noise(
-                            generator, n, t, c).items()}
-            carry = FleetCarry(
-                node=state, keys=keys0, intermittent=it, brownout=browned0,
-                telemetry=(None if tel_spec is None
-                           else metrics_init(tel_spec, dev)))
-            params, own_weights = _model_params(
-                signatures=signatures, qdnn_params=qdnn_params,
-                host_params=host_params, gen_params=gen_params,
-                aac_table=aac_table, costs=costs, quant_bits=quant_bits,
-                k_max=k_max, m_samples=m_samples,
-                corr_threshold=corr_threshold, har_cfg=har_cfg,
-                brownout=brownout, intermittent=intermittent,
-                aux_params=aux_params, task=task, dev=dev)
-        traces, carry = _run_slots(
-            xs_w, harv, exo_alive, carry, noise=noise, draw=draw,
-            params=params, own_weights=own_weights, tasks=tasks_t, task=task,
-            brownout=brownout, intermittent=intermittent, tel_spec=tel_spec,
-            active=active, slot0=slot0, node_block=node_block)
-        with obs_trace.span("fleet.aggregates"):
-            aggs = _fleet_aggregates(
-                traces, exo_alive.T, labels_t, per_node_labels, intermittent,
-                slot0, tasks_t, task, mask=mask)
-            # the collectives: every rank's counts summed, every tile's
-            # traces and carry gathered
-            with obs_trace.span("fleet.collect"):
-                aggs = _reduce_aggregates(aggs, shard)
-                gathered = {k: _gather_nodes(traces[k], shard, n, dim=1)
-                            for k in fleet_trace_keys(active) if k != "preds"}
-                carry = FleetCarry(
-                    node=_gather_nodes(carry.node, shard, n),
-                    keys=_gather_nodes(carry.keys, shard, n),
-                    brownout=_gather_nodes(carry.brownout, shard, n),
-                    intermittent=_gather_nodes(carry.intermittent, shard, n),
-                    telemetry=None if tel_spec is None else metrics_psum(
-                        tel_spec, carry.telemetry, shard.group))
-            gathered["preds"] = torch.argmax(gathered["logits"], dim=-1)
-            out = _fleet_result(gathered, aggs, carry, active=active,
-                                intermittent=intermittent, tel_spec=tel_spec,
-                                telemetry_state0=telemetry_state0,
-                                scored=labels_t is not None, tasks=tasks,
-                                task=task, t=t, c=c)
-            out.update(padded_nodes=pad, node_axes=shard.axes)
-            return out
+    return _fleet_engine(
+        functools.partial(_mesh_shard, mesh), windows, harvest,
+        signatures=signatures, qdnn_params=qdnn_params,
+        host_params=host_params, gen_params=gen_params, har_cfg=har_cfg,
+        aac_table=aac_table, costs=costs, generator=generator, noise=noise,
+        node_keys=node_keys, quant_bits=quant_bits, k_max=k_max,
+        m_samples=m_samples, corr_threshold=corr_threshold,
+        predictor_window=predictor_window, initial_uj=initial_uj,
+        state0=state0, labels=labels, alive=alive, brownout=brownout,
+        brownout_state0=brownout_state0, intermittent=intermittent,
+        intermittent_state0=intermittent_state0, aux_params=aux_params,
+        slot0=slot0, telemetry=telemetry, telemetry_state0=telemetry_state0,
+        tasks=tasks, task=task, node_block=node_block, device=device)
 
 
 def seeker_fleet_simulate_streamed(
@@ -1522,7 +1472,8 @@ def seeker_fleet_simulate_streamed(
             window_fn = lambda a, b: arr[:, a:b]              # noqa: E731
     labels_full = None if labels is None else to_device(labels, dev,
                                                         torch.int64)
-    alive_full = None if alive is None else _resolve_alive(alive, n, s, dev)
+    alive_full = (None if alive is None else
+                  to_device(_check_alive(alive, n, s), dev, torch.bool))
     tasks, task = _resolve_tasks(tasks, task, n, dev)
     tel_spec = _resolve_telemetry(telemetry, intermittent, task)
     if noise is None and generator is None and node_keys is None:

@@ -31,7 +31,8 @@ import repro_torch  # noqa: E402
 from repro_torch import host as thost  # noqa: E402
 from repro_torch import sharding  # noqa: E402
 from repro_torch.obs import (counter, gauge, histogram,  # noqa: E402
-                             metrics_psum, spec_union)
+                             metrics_psum, spec_union, trace)
+from repro_torch.serving.fleet import draw_fleet_noise  # noqa: E402
 
 import _torch_sharded_worker as worker  # noqa: E402
 
@@ -234,27 +235,73 @@ def _assert_same(got, want, what=""):
             _assert_same(got[k], want[k], f"{what}[{k}]")
 
 
-def test_world_of_one_fleet_is_the_single_device_engine(world):
+def _noise_source(name, s, n):
+    """A fresh noise source of each kind, the same on every call."""
+    if name == "generator":
+        return {"generator": worker.noise_gen()}
+    if name == "noise":
+        return {"noise": draw_fleet_noise(worker.noise_gen(), s, n,
+                                          HAR.window, HAR.channels)}
+    return {"node_keys": repro_torch.fleet_node_keys(worker.KEY_SEED, n,
+                                                     "cpu")}
+
+
+@pytest.mark.parametrize("source", ["generator", "noise", "node_keys"])
+def test_world_of_one_fleet_is_the_single_device_engine(world, source):
     """Every output of the sharded engine and of the streamed driver on the
-    mesh, bit for bit the single-device engine's: one tile is the whole
-    fleet, so even the node blocks are the same."""
+    mesh, bit for bit the single-device engine's, with each noise source:
+    one tile is the whole fleet, so even the node blocks are the same."""
     mesh = sharding.make_mesh((1,), ("data",), "cpu")
     d = worker.lane_inputs()
     w, h = d.pop("windows"), d.pop("harvest")
+    n, s = h.shape
     want = repro_torch.seeker_fleet_simulate(
-        w, h, generator=worker.noise_gen(), **d)
+        w, h, **_noise_source(source, s, n), **d)
     got = repro_torch.seeker_fleet_simulate_sharded(
-        w, h, mesh=mesh, generator=worker.noise_gen(), **d)
+        w, h, mesh=mesh, **_noise_source(source, s, n), **d)
     assert got["padded_nodes"] == 0 and got["node_axes"] == ("data",)
     assert set(got) == set(want) | {"padded_nodes", "node_axes"}
     for k, v in want.items():
         _assert_same(got[k], v, k)
     streamed = repro_torch.seeker_fleet_simulate_streamed(
-        w, h, chunk=worker.CHUNK, mesh=mesh, generator=worker.noise_gen(),
+        w, h, chunk=worker.CHUNK, mesh=mesh, **_noise_source(source, s, n),
         **d)
     for k in ("decisions", "stored_uj", "logits", "it_emit", "correct",
               "telemetry", "final_state", "final_intermittent"):
         _assert_same(streamed[k], want[k], k)
+    if source == "node_keys":
+        _assert_same(streamed["final_keys"], want["final_keys"])
+
+
+def test_world_of_one_sharded_spans(world):
+    """The sharded engine opens the single-device engine's spans plus one
+    ``fleet.tile`` inside ``fleet.prepare`` and one ``fleet.collect``
+    inside ``fleet.aggregates``, which ``sharded.collect_ms_per_slot``
+    reads; the single-device engine opens neither."""
+    mesh = sharding.make_mesh((1,), ("data",), "cpu")
+    d = worker.keyed_inputs()
+    w, h = d.pop("windows"), d.pop("harvest")
+    names = {}
+    for entry, kw in ((repro_torch.seeker_fleet_simulate, {}),
+                      (repro_torch.seeker_fleet_simulate_sharded,
+                       {"mesh": mesh})):
+        trace.clear()
+        trace.enable()
+        try:
+            entry(w, h, **kw, **d)
+        finally:
+            trace.enable(False)
+        evs = trace.events()
+        by_id = {e["id"]: e for e in evs}
+        names[entry] = [(e["name"], by_id[e["parent"]]["name"])
+                        for e in evs if e["parent"] is not None]
+    trace.clear()
+    single = names[repro_torch.seeker_fleet_simulate]
+    sharded = names[repro_torch.seeker_fleet_simulate_sharded]
+    assert not {"fleet.tile", "fleet.collect"} & {a for a, _ in single}
+    assert sorted(sharded) == sorted(single + [
+        ("fleet.tile", "fleet.prepare"),
+        ("fleet.collect", "fleet.aggregates")])
 
 
 def test_world_of_one_serve_steps_are_the_single_device_ones(world):
